@@ -56,8 +56,9 @@ class FGNConfig:
     mask_thr: float = 0.5
     rcnn_bbox_stds: Tuple[float, ...] = (0.1, 0.1, 0.2, 0.2)
     compute_dtype: str = "float32"
-    # Rematerialization of named blocks in the training step; no effect on
-    # inference (kept so the same config values load).
+    # Blocks recomputed in the backward pass (torch.utils.checkpoint): a
+    # comma-set of "backbone", "res5", "relation", "mask"; "" = none. The
+    # same ops run in the same order; no effect on inference.
     remat: str = ""
     # Accepted and ignored: a CUDA tensor always goes to the hand-written
     # kernel (ops/roi_align_cuda.py, ops/nms_cuda.py) and a CPU tensor to

@@ -1,43 +1,68 @@
 """FGN — Fully Guided Network for few-shot instance segmentation, in PyTorch.
 
-Port of the JAX package's ``models/fgn.py``, inference path:
-``FGN.test_forward(batch) -> detections``, the reference's simple_test to
-a fixed number of detections per image. The method split, the output keys
-and the numerics follow the JAX module; only ``vmap`` became a batch
-dimension. Layout at the methods is NHWC (fmaps (B, h, w, C), ROI features
-(B, R, 7, 7, C)); boxes are XYXY.
+Port of the JAX package's ``models/fgn.py``, with its two entry points:
 
-Two hand-written CUDA kernels carry the path on the card:
+  * ``FGN.train_forward(batch, generator) -> losses``: the RPN loss per
+    (image, way), RCNN assignment and sampling with the gt boxes as
+    proposals, the relation head's classification and box losses, and the
+    gated mask head's loss;
+  * ``FGN.test_forward(batch) -> detections``: the reference's simple_test
+    to a fixed number of detections per image.
 
-  * RoIAlign on backbone features (``ops/roi_align_cuda.py``), three calls
-    per forward: support crops, proposals, detections;
-  * the greedy-NMS keep mask (``ops/nms_cuda.py``), two calls: RPN
-    proposals and per-class detections.
+The method split, the output keys and the numerics follow the JAX module;
+only ``vmap`` became a batch dimension. Layout at the methods is NHWC
+(fmaps (B, h, w, C), ROI features (B, R, 7, 7, C)); boxes are XYXY.
 
-On CPU tensors both wrappers use their plain versions.
+Hand-written CUDA kernels carry both paths on the card:
+
+  * RoIAlign on backbone features (``ops/roi_align_cuda.py``): three
+    forward calls per ``test_forward`` (support crops, proposals,
+    detections); two per ``train_forward`` (support crops, sampled ROIs),
+    each with its backward kernel in the backward pass;
+  * the greedy-NMS keep mask (``ops/nms_cuda.py``): two calls per
+    ``test_forward`` (RPN proposals, per-class detections), one per
+    ``train_forward`` (RPN proposals).
+
+On CPU tensors the wrappers use their plain versions.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from fgn_torch.config import FGNConfig
 from fgn_torch.data.batching import EpisodeBatch, mask_to_float, to_device
+from fgn_torch.models.losses import (
+    accuracy_balanced, sigmoid_bce, smooth_l1, softmax_ce,
+)
 from fgn_torch.models.resnet import (
     Conv2d, GroupNorm, ResNetC4, SharedRes5, _nchw, _nhwc,
 )
-from fgn_torch.ops.anchors import generate_anchors
-from fgn_torch.ops.boxes import delta_decode
+from fgn_torch.ops.anchors import anchor_inside_flags, generate_anchors
+from fgn_torch.ops.assign import max_iou_assign
+from fgn_torch.ops.boxes import delta_decode, delta_encode
 from fgn_torch.ops.nms import batched_nms, nms_padded
 from fgn_torch.ops.nms_cuda import greedy_alive_cuda
 from fgn_torch.ops.roi_align import roi_align
 from fgn_torch.ops.roi_align_cuda import roi_align_cuda
+from fgn_torch.ops.sample import random_sample_pos_neg
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# float64 serves the parity tests: gradients of this network in float32
+# differ from the exact ones by up to a few percent of a leaf's largest
+# entry, in the JAX package as in the port.
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float64": torch.float64}
+
+# The uniform draws of the samplers: draws(name, shape) → a float32 tensor
+# of that shape, uniform on [0, 1), on the model's device. ``train_forward``
+# asks for ("rpn", (B, N, 2, M)) and then ("rcnn", (B, 2, G + P)); index 0
+# of the axis of size 2 ranks the positives, index 1 the negatives.
+Draws = Callable[[str, Tuple[int, ...]], torch.Tensor]
 
 
 class Linear(nn.Module):
@@ -83,6 +108,13 @@ class FGN(nn.Module):
         super().__init__()
         self.cfg = c = cfg
         dt = self.dt = _DTYPES[c.compute_dtype]
+        # Blocks recomputed in the backward pass instead of kept
+        # (torch.utils.checkpoint): a set of "backbone", "res5",
+        # "relation", "mask". The same ops run in the same order.
+        self.remats = frozenset(filter(None, c.remat.split(",")))
+        unknown = self.remats - {"backbone", "res5", "relation", "mask"}
+        if unknown:
+            raise ValueError(f"FGNConfig.remat: unknown blocks {sorted(unknown)}")
         A = c.num_anchors
         C = c.feat_channels
         self.backbone = ResNetC4(
@@ -113,6 +145,13 @@ class FGN(nn.Module):
 
     # -- shared plumbing ----------------------------------------------------
 
+    def _remat(self, block: str, fn, *args):
+        """fn(*args), recomputed in the backward pass when ``block`` is in
+        ``cfg.remat`` and autograd records."""
+        if block in self.remats and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
     def _normalize(self, img, batch):
         x = img.to(torch.float32)
         mean = batch.norm_mean.to(torch.float32)
@@ -122,13 +161,13 @@ class FGN(nn.Module):
     def _extract(self, batch):
         """→ qry_fmap (B,h,w,C); spp_fmaps (B,N,K,hs,ws,C) or None."""
         c = self.cfg
-        qry = self.backbone(self._normalize(batch.qry_img, batch))
+        qry = self._remat("backbone", self.backbone,
+                          self._normalize(batch.qry_img, batch))
         if not c.guidance:
             return qry, None
         B, NK, S1, S2, _ = batch.spp_imgs.shape
-        spp = self.backbone(
-            self._normalize(batch.spp_imgs.reshape(B * NK, S1, S2, 3), batch)
-        )
+        spp = self._remat("backbone", self.backbone, self._normalize(
+            batch.spp_imgs.reshape(B * NK, S1, S2, 3), batch))
         hs, ws, C = spp.shape[1:]
         return qry, spp.reshape(B, c.n_ways, c.k_shots, hs, ws, C)
 
@@ -215,7 +254,8 @@ class FGN(nn.Module):
         fmaps_aligned = self._roi_align_fmap(
             spp_fmaps.reshape(B * NK, hs, ws, C), rois, 1.0 / c.stride
         )  # (B*NK, 1, 7, 7, C)
-        feats = self.shared5(fmaps_aligned.reshape(B * NK, 7, 7, C))
+        feats = self._remat("res5", self.shared5,
+                            fmaps_aligned.reshape(B * NK, 7, 7, C))
         feats = feats.reshape(B, N, K, 7, 7, C)
         spp_maps = feats.mean(dim=2)  # (B, N, 7, 7, C)
         weighted = feats * masks_aligned.reshape(B, N, K, 7, 7, 1).to(feats.dtype)
@@ -238,8 +278,12 @@ class FGN(nn.Module):
         feats = self._roi_align_fmap(
             qry_fmap, rois.to(torch.float32).contiguous(), 1.0 / self.cfg.stride
         )  # (B, R, 7, 7, C)
-        feats = self.shared5(feats.reshape(B * R, 7, 7, C))
+        feats = self._remat("res5", self.shared5, feats.reshape(B * R, 7, 7, C))
         return feats.reshape(B, R, 7, 7, C)
+
+    def _relation(self, bbox_feats, spp_maps):
+        return self._remat("relation", self._relation_impl, bbox_feats,
+                           spp_maps)
 
     def _relation_impl(self, bbox_feats, spp_maps):
         """Relation head → (cls_final (B,R,N+1), reg (B,R,N,4)).
@@ -267,6 +311,9 @@ class FGN(nn.Module):
         cls_final = torch.cat([fg, bg], dim=-1)  # (B, R, N+1)
         return cls_final, reg
 
+    def _mask_head(self, feats):
+        return self._remat("mask", self._mask_head_impl, feats)
+
     def _mask_head_impl(self, feats):
         """(P, 7, 7, 1024) gated RoI feats → (P, 14, 14) logits."""
         x = _nchw(feats)
@@ -275,6 +322,188 @@ class FGN(nn.Module):
             x = F.relu(conv(x))
         x = F.relu(self.mask_deconv(x))
         return self.mask_logits(x)[:, 0]
+
+    # -- training -------------------------------------------------------------
+
+    def _rpn_loss(self, cls, reg, batch, u):
+        """Per-(image, way) anchor losses / N, against each way's gt.
+
+        cls (B,N,h,w,A), reg (B,N,h,w,A,4), u (B,N,2,M) the sampler's draws.
+        As in the JAX module (a documented deviation from the reference):
+        the sum over all (image, way) pairs is divided by the global
+        sampled count, then by N."""
+        c = self.cfg
+        B, N, h, w, A = cls.shape
+        M = h * w * A
+        dev = cls.device
+        anchors = generate_anchors(h, w, c.stride, c.anchor_scales,
+                                   c.anchor_ratios, device=dev)
+        cls_flat = cls.reshape(B, N, M).to(torch.float32)
+        reg_flat = reg.reshape(B, N, M, 4).to(torch.float32)
+        hw = batch.img_hw
+        inside = anchor_inside_flags(anchors, hw[:, 0:1], hw[:, 1:2], 0)  # (B,M)
+        gt_boxes = batch.qry_boxes.to(torch.float32)  # (B, G, 4)
+        G = gt_boxes.shape[1]
+        ways = torch.arange(N, device=dev)
+        way_valid = batch.qry_valid[:, None, :] & (
+            batch.qry_cats[:, None, :] == ways[None, :, None])  # (B, N, G)
+        assign = max_iou_assign(
+            anchors, gt_boxes[:, None], way_valid,
+            c.rpn_pos_iou, c.rpn_neg_iou, c.rpn_min_pos_iou,
+            match_low_quality=True, box_valid=inside[:, None],
+        )  # (B, N, M)
+        s = random_sample_pos_neg(u, assign.pos_mask, assign.neg_mask,
+                                  c.rpn_num_samples, c.rpn_pos_fraction)
+        logits = torch.gather(cls_flat, 2, s.inds)
+        labels = s.is_pos.to(torch.float32)
+        lw = s.valid.to(torch.float32)
+        gt_idx = (torch.gather(assign.assigned_gt_inds, 2, s.inds) - 1).clamp(min=0)
+        tgt = torch.gather(
+            gt_boxes[:, None].expand(B, N, G, 4), 2,
+            gt_idx.long()[..., None].expand(-1, -1, -1, 4))
+        targets = delta_encode(anchors[s.inds], tgt)
+        idx4 = s.inds[..., None].expand(-1, -1, -1, 4)
+        deltas = torch.gather(reg_flat, 2, idx4)
+        pos = s.is_pos & s.valid
+        bw = pos.to(torch.float32)[..., None]
+        total = lw.sum().clamp(min=1.0)
+        losses = {
+            "loss_rpn_cls": sigmoid_bce(logits, labels, lw, 1.0) / total / N,
+            "loss_rpn_bbox": smooth_l1(deltas, targets, bw, 1.0) / total / N,
+        }
+        # diagnostics: sampled pos/neg counts per way, inside-image anchors
+        n_pos = pos.sum(dim=-1).to(torch.float32)  # (B, N)
+        n_neg = (~s.is_pos & s.valid).sum(dim=-1).to(torch.float32)
+        for n in range(N):
+            losses[f"rpn_log_pos_way{n}"] = n_pos[:, n].mean()
+            losses[f"rpn_log_neg_way{n}"] = n_neg[:, n].mean()
+        losses["rpn_log_valid_anchors"] = inside.sum(dim=-1).to(torch.float32).mean()
+        return losses
+
+    def _sample_rois(self, batch, props, prop_valid, u):
+        """RCNN assignment and sampling, the gt boxes prepended to the
+        proposals as always-positive candidates (mmdet's
+        add_gt_as_proposals). u (B, 2, G+P). → (rois (B,R,4), labels (B,R)
+        int32 with N for background, gt_idx (B,R), is_pos (B,R), is_valid
+        (B,R), tgt_boxes (B,R,4))."""
+        c = self.cfg
+        N = c.n_ways
+        gt_boxes = batch.qry_boxes.to(torch.float32)
+        gt_valid = batch.qry_valid
+        B, G = gt_valid.shape
+        cand = torch.cat([gt_boxes, props], dim=1)  # (B, G+P, 4)
+        # Padded proposals get a box far outside (IoU 0 → negative) and
+        # are then excluded through prop_valid.
+        props_for_assign = torch.where(prop_valid[..., None], props,
+                                       torch.full((), -1e4, device=props.device))
+        assign = max_iou_assign(
+            props_for_assign, gt_boxes, gt_valid,
+            c.rcnn_pos_iou, c.rcnn_neg_iou, c.rcnn_min_pos_iou,
+            match_low_quality=True,
+        )  # (B, P)
+        g_ids = torch.arange(1, G + 1, dtype=torch.int32, device=props.device)
+        gt_self = torch.where(gt_valid, g_ids, -1)
+        assigned = torch.cat([gt_self, assign.assigned_gt_inds], dim=1)
+        cand_valid = torch.cat([gt_valid, prop_valid], dim=1)
+        s = random_sample_pos_neg(u, (assigned > 0) & cand_valid,
+                                  (assigned == 0) & cand_valid,
+                                  c.rcnn_num_samples, c.rcnn_pos_fraction)
+        rois = torch.gather(cand, 1, s.inds[..., None].expand(-1, -1, 4))
+        gt_idx = (torch.gather(assigned, 1, s.inds) - 1).clamp(min=0).long()
+        labels = torch.where(s.is_pos, torch.gather(batch.qry_cats, 1, gt_idx), N)
+        tgt_boxes = torch.gather(gt_boxes, 1, gt_idx[..., None].expand(-1, -1, 4))
+        return rois, labels, gt_idx, s.is_pos & s.valid, s.valid, tgt_boxes
+
+    def train_forward(self, batch: EpisodeBatch,
+                      generator: Optional[torch.Generator] = None,
+                      draws: Optional[Draws] = None) -> Dict[str, torch.Tensor]:
+        """Losses (``loss_*``) and diagnostics of one episode batch.
+
+        The samplers' uniform draws come from ``draws`` when given (see
+        ``Draws``), else from ``torch.rand`` with ``generator``, a generator
+        on the model's device."""
+        c = self.cfg
+        dev = self.rpn_conv.weight.device
+        batch = to_device(batch, dev)
+        if draws is None:
+            if generator is None:
+                raise ValueError("train_forward: pass a generator or draws")
+
+            def draws(name, shape):
+                return torch.rand(shape, generator=generator, device=dev)
+
+        B = batch.qry_img.shape[0]
+        N = c.n_ways
+
+        qry_fmap, spp_fmaps = self._extract(batch)
+        rpn_cls, rpn_reg = self._rpn_forward(qry_fmap, spp_fmaps)
+        h, w, A = rpn_cls.shape[2:]
+        losses = self._rpn_loss(rpn_cls, rpn_reg, batch,
+                                draws("rpn", (B, N, 2, h * w * A)))
+
+        # Proposals are inputs to the second stage, not a gradient path.
+        with torch.no_grad():
+            merged_cls, merged_reg = self._merge_ways(rpn_cls, rpn_reg)
+            props, _, prop_valid = self.get_proposals(
+                merged_cls, merged_reg, batch.img_hw,
+                c.rpn_train_nms_pre, c.rpn_train_max_per_img,
+            )
+        G, P = batch.qry_boxes.shape[1], props.shape[1]
+        rois, labels, gt_idx, is_pos, is_valid, tgt_boxes = self._sample_rois(
+            batch, props, prop_valid, draws("rcnn", (B, 2, G + P)))
+        R = rois.shape[1]
+
+        spp_maps = spp_vecs_mask = None
+        if c.guidance:
+            spp_maps, spp_vecs_mask = self._count_spp(
+                spp_fmaps, batch.spp_boxes, batch.spp_masks
+            )
+        bbox_feats = self._bbox_feats(qry_fmap, rois)
+        cls_final, reg_ways = self._relation(bbox_feats, spp_maps)
+
+        lw = is_valid.to(torch.float32).reshape(B * R)
+        flat_cls = cls_final.reshape(B * R, N + 1)
+        flat_labels = labels.reshape(B * R)
+        losses["loss_cls"] = softmax_ce(flat_cls, flat_labels, lw,
+                                        lw.sum().clamp(min=1.0))
+        way = labels.clamp(0, N - 1).long()
+        pred_deltas = torch.gather(
+            reg_ways, 2, way[:, :, None, None].expand(-1, -1, 1, 4))[:, :, 0]
+        targets = delta_encode(rois, tgt_boxes, stds=c.rcnn_bbox_stds)
+        bw = is_pos.to(torch.float32)[..., None]
+        losses["loss_bbox"] = smooth_l1(pred_deltas, targets, bw, float(B * R))
+        acc, bal = accuracy_balanced(flat_cls, flat_labels, lw, N + 1)
+        losses["acc"] = acc
+        losses["acc_balanced"] = bal
+
+        # -- mask branch: positives live in the first P_max slots ----------
+        P_max = max(int(R * c.rcnn_pos_fraction), 1)
+        m = c.mask_size
+        pos_feats = bbox_feats[:, :P_max]
+        if c.guidance:
+            C = spp_vecs_mask.shape[-1]
+            gate = torch.gather(spp_vecs_mask, 1,
+                                way[:, :P_max, None].expand(-1, -1, C))
+            pos_feats = pos_feats * gate[:, :, None, None, :].to(pos_feats.dtype)
+        mask_logits = self._mask_head(
+            pos_feats.reshape(B * P_max, 7, 7, -1)
+        ).reshape(B, P_max, m, m)
+
+        # targets: RoIAlign of the (downsampled) gt masks at the pos rois
+        with torch.no_grad():
+            mh = batch.qry_masks.shape[2]
+            mask_fmap = mask_to_float(batch.qry_masks).permute(0, 2, 3, 1)
+            aligned = roi_align(
+                mask_fmap, rois[:, :P_max].to(torch.float32), m,
+                spatial_scale=float(mh) / float(batch.qry_img.shape[1]),
+            )  # (B, P_max, m, m, G)
+            sel = gt_idx[:, :P_max, None, None, None].expand(-1, -1, m, m, 1)
+            tgt = (torch.gather(aligned, -1, sel)[..., 0] >= 0.5).to(torch.float32)
+        pos_m = is_pos[:, :P_max].to(torch.float32)
+        n_pos_px = pos_m.sum().clamp(min=1.0) * (m * m)
+        losses["loss_mask"] = sigmoid_bce(mask_logits, tgt,
+                                          pos_m[..., None, None], n_pos_px)
+        return losses
 
     # -- inference ------------------------------------------------------------
 

@@ -53,8 +53,8 @@ class Conv2d(nn.Module):
 
 
 class GroupNorm(nn.Module):
-    """flax ``nn.GroupNorm``: statistics and affine in f32, result cast to
-    the compute dtype."""
+    """flax ``nn.GroupNorm``: statistics and affine in f32 (f64 for an f64
+    input), result cast to the compute dtype."""
 
     def __init__(self, num_groups, features, eps=1e-5, dtype=torch.float32):
         super().__init__()
@@ -65,8 +65,9 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):  # NCHW
+        dt = torch.promote_types(x.dtype, torch.float32)
         return F.group_norm(
-            x.to(torch.float32), self.num_groups, self.weight, self.bias,
+            x.to(dt), self.num_groups, self.weight.to(dt), self.bias.to(dt),
             self.eps,
         ).to(self.dt)
 

@@ -34,6 +34,8 @@ _SIGNATURES = {
     "roi_align": {
         "fgn_roi_align_forward": (
             [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P], _I),
+        "fgn_roi_align_backward": (
+            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P], _I),
         "fgn_roi_align_error_string": ([_I], ctypes.c_char_p),
     },
     "nms": {

@@ -1,12 +1,17 @@
-"""RoIAlign on backbone features: hand-written CUDA kernel + plain version.
+"""RoIAlign on backbone features: hand-written CUDA kernels + plain versions.
 
 Counterpart of the JAX package's ``ops/roi_align_pallas.py``, with the
-same signature and result. ``roi_align_cuda`` launches
-``csrc/roi_align.cu`` for a CUDA tensor and uses ``_roi_align_plain`` only
-for a CPU tensor. The plain version is the TPU kernel's arithmetic in
-torch: hat-weight matrices (``_hat_weights``/``_roi_weights``) and the pair
-of contractions of ``_chunk_contract``, f32 accumulation, one rounding to
-the map's dtype. Forward only: the backward comes with the training step.
+same signature and result. ``roi_align_cuda`` is differentiable with
+respect to the map, as the TPU kernel's custom VJP is: it applies
+``_RoIAlign``, a ``torch.autograd.Function`` whose forward launches the
+forward kernel of ``csrc/roi_align.cu`` and whose backward launches its
+backward kernel (``roi_align_backward_cuda``). No gradient flows to the
+ROIs. For a CPU tensor the same Function runs the plain versions instead:
+``_roi_align_plain`` forward, ``_roi_align_plain_bwd`` backward. They are
+the TPU kernel's arithmetic in torch: hat-weight matrices
+(``_hat_weights``/``_roi_weights``) and a pair of contractions, f32
+accumulation, one rounding to the map's dtype; the backward is the JAX
+``f_bwd``'s pair of einsums, chunked over ROIs.
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ from __future__ import annotations
 import torch
 
 from fgn_torch.ops import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _hat_weights(start, bin_size, size: int, out_size: int, ratio: int):
@@ -49,7 +56,7 @@ def _roi_weights(rois, H, W, O, spatial_scale, sampling_ratio, aligned):
 
 def _roi_align_plain(fmap, rois, out_size=7, spatial_scale=1.0,
                      sampling_ratio=2, aligned=True):
-    """The kernel's plain version: out[b,r,i,j,c] =
+    """The forward kernel's plain version: out[b,r,i,j,c] =
     Σ_h Σ_w Wy[b,r,i,h] · f[b,h,w,c] · Wx[b,r,j,w], in f32."""
     B, H, W, C = fmap.shape
     wy, wx = _roi_weights(
@@ -61,43 +68,61 @@ def _roi_align_plain(fmap, rois, out_size=7, spatial_scale=1.0,
     return out.to(fmap.dtype)
 
 
-def roi_align_cuda(fmap, rois, out_size: int = 7, spatial_scale: float = 1.0,
-                   sampling_ratio: int = 2, aligned: bool = True):
-    """(B, H, W, C) map, (B, R, 4) XYXY f32 rois → (B, R, O, O, C) in the
-    map's dtype (f32 or bf16)."""
+def _roi_align_plain_bwd(g, rois, H: int, W: int, dtype, out_size=7,
+                         spatial_scale=1.0, sampling_ratio=2, aligned=True,
+                         roi_chunk: int = 32):
+    """The backward kernel's plain version: the map's gradient
+    df[b,h,w,c] = Σ_r Σ_i Σ_j Wy[b,r,i,h] · g[b,r,i,j,c] · Wx[b,r,j,w],
+    summed in f32 over chunks of ``roi_chunk`` ROIs, cast to ``dtype``."""
+    B, R, O, _, C = g.shape
+    wy, wx = _roi_weights(
+        rois.to(torch.float32), H, W, out_size, spatial_scale,
+        max(int(sampling_ratio), 1), aligned,
+    )
+    df = torch.zeros((B, H, W, C), dtype=torch.float32, device=g.device)
+    for lo in range(0, R, roi_chunk):
+        sl = slice(lo, lo + roi_chunk)
+        gyc = torch.einsum("brih,brijc->brhjc", wy[:, sl],
+                           g[:, sl].to(torch.float32))  # (B, RC, H, O, C)
+        df += torch.einsum("brhjc,brjw->bhwc", gyc, wx[:, sl])
+    return df.to(dtype)
+
+
+def _check(fmap, rois, out_size, S, what):
+    if fmap.dim() != 4 or rois.dim() != 3 or rois.shape[-1] != 4:
+        raise ValueError(
+            f"{what}: want fmap (B,H,W,C) and rois (B,R,4), got "
+            f"{tuple(fmap.shape)} and {tuple(rois.shape)}"
+        )
+    if fmap.dtype not in _DTYPES:
+        raise TypeError(f"{what}: dtype {fmap.dtype} not in f32/bf16")
+    if rois.dtype != torch.float32:
+        raise TypeError(f"{what}: rois must be float32, got {rois.dtype}")
+    if rois.device != fmap.device or rois.shape[0] != fmap.shape[0]:
+        raise ValueError(f"{what}: rois must match the map's device and batch")
+    if not (fmap.is_contiguous() and rois.is_contiguous()):
+        raise ValueError(f"{what}: tensors must be contiguous")
+    if fmap.shape[-1] % 2 or fmap.data_ptr() % (2 * fmap.element_size()):
+        raise ValueError(f"{what}: C must be even and the data pair-aligned")
+    if out_size * S > 64 or rois.shape[1] > 65535 or fmap.shape[0] > 65535:
+        raise ValueError(f"{what}: out_size*sampling_ratio <= 64, R and B "
+                         f"<= 65535")
+
+
+def _roi_align_forward(fmap, rois, out_size, spatial_scale, sampling_ratio,
+                       aligned):
+    """Forward on the map's device: the plain version for a CPU tensor, the
+    kernel for a CUDA tensor."""
     if fmap.device.type == "cpu":
         return _roi_align_plain(
             fmap, rois, out_size, spatial_scale, sampling_ratio, aligned
         )
     if fmap.device.type != "cuda":
         raise ValueError(f"roi_align_cuda: unsupported device {fmap.device}")
-    if fmap.requires_grad:
-        raise NotImplementedError(
-            "roi_align_cuda is forward only; its backward comes with the "
-            "training step"
-        )
-    if fmap.dim() != 4 or rois.dim() != 3 or rois.shape[-1] != 4:
-        raise ValueError(
-            f"roi_align_cuda: want fmap (B,H,W,C) and rois (B,R,4), got "
-            f"{tuple(fmap.shape)} and {tuple(rois.shape)}"
-        )
+    S = max(int(sampling_ratio), 1)
+    _check(fmap, rois, out_size, S, "roi_align_cuda")
     B, H, W, C = fmap.shape
     R = rois.shape[1]
-    S = max(int(sampling_ratio), 1)
-    dtypes = {torch.float32: 0, torch.bfloat16: 1}
-    if fmap.dtype not in dtypes:
-        raise TypeError(f"roi_align_cuda: fmap dtype {fmap.dtype} not in f32/bf16")
-    if rois.dtype != torch.float32:
-        raise TypeError(f"roi_align_cuda: rois must be float32, got {rois.dtype}")
-    if rois.device != fmap.device or rois.shape[0] != B:
-        raise ValueError("roi_align_cuda: rois must match fmap's device and batch")
-    if not (fmap.is_contiguous() and rois.is_contiguous()):
-        raise ValueError("roi_align_cuda: fmap and rois must be contiguous")
-    if C % 2 or fmap.data_ptr() % (2 * fmap.element_size()):
-        raise ValueError("roi_align_cuda: C must be even and fmap pair-aligned")
-    if out_size * S > 64 or R > 65535 or B > 65535:
-        raise ValueError("roi_align_cuda: out_size*sampling_ratio <= 64, "
-                         "R and B <= 65535")
     out = torch.empty((B, R, out_size, out_size, C), dtype=fmap.dtype,
                       device=fmap.device)
     if out.numel() == 0:
@@ -106,11 +131,74 @@ def roi_align_cuda(fmap, rois, out_size: int = 7, spatial_scale: float = 1.0,
     rc = lib.fgn_roi_align_forward(
         fmap.data_ptr(), rois.data_ptr(), out.data_ptr(), B, H, W, C, R,
         out_size, S, float(spatial_scale), int(bool(aligned)),
-        dtypes[fmap.dtype], torch.cuda.current_stream(fmap.device).cuda_stream,
+        _DTYPES[fmap.dtype], torch.cuda.current_stream(fmap.device).cuda_stream,
     )
     _build.check(lib, "fgn_roi_align_error_string", rc, "roi_align kernel")
     roi_align_cuda.launches += 1
     return out
 
 
+def roi_align_backward_cuda(g, rois, H: int, W: int, out_size: int = 7,
+                            spatial_scale: float = 1.0, sampling_ratio: int = 2,
+                            aligned: bool = True):
+    """The map's gradient: g (B, R, O, O, C), the gradient of the output, →
+    (B, H, W, C) in g's dtype (the map's dtype). The backward kernel for a
+    CUDA tensor, the plain version for a CPU tensor."""
+    if g.device.type == "cpu":
+        return _roi_align_plain_bwd(g, rois, H, W, g.dtype, out_size,
+                                    spatial_scale, sampling_ratio, aligned)
+    if g.device.type != "cuda":
+        raise ValueError(f"roi_align_backward_cuda: unsupported device {g.device}")
+    S = max(int(sampling_ratio), 1)
+    B, R = g.shape[:2]
+    C = g.shape[-1]
+    if g.shape != (B, R, out_size, out_size, C) or not g.is_contiguous():
+        raise ValueError(f"roi_align_backward_cuda: g must be a contiguous "
+                         f"(B,R,O,O,C) with O={out_size}, got {tuple(g.shape)}")
+    _check(g.reshape(B, R * out_size, out_size, C), rois, out_size, S,
+           "roi_align_backward_cuda")
+    acc = torch.zeros((B, H, W, C), dtype=torch.float32, device=g.device)
+    if acc.numel() == 0 or g.numel() == 0:
+        return acc.to(g.dtype)
+    df = acc if g.dtype == torch.float32 else torch.empty_like(acc, dtype=g.dtype)
+    lib = _build.load("roi_align")
+    rc = lib.fgn_roi_align_backward(
+        g.data_ptr(), rois.data_ptr(), acc.data_ptr(), df.data_ptr(), B, H, W,
+        C, R, out_size, S, float(spatial_scale), int(bool(aligned)),
+        _DTYPES[g.dtype], torch.cuda.current_stream(g.device).cuda_stream,
+    )
+    _build.check(lib, "fgn_roi_align_error_string", rc,
+                 "roi_align backward kernel")
+    roi_align_backward_cuda.launches += 1
+    return df
+
+
+class _RoIAlign(torch.autograd.Function):
+    """RoIAlign, differentiable with respect to the map (not the ROIs)."""
+
+    @staticmethod
+    def forward(ctx, fmap, rois, out_size, spatial_scale, sampling_ratio,
+                aligned):
+        ctx.save_for_backward(rois)
+        ctx.geom = (fmap.shape[1], fmap.shape[2], out_size, spatial_scale,
+                    sampling_ratio, aligned)
+        return _roi_align_forward(fmap, rois, out_size, spatial_scale,
+                                  sampling_ratio, aligned)
+
+    @staticmethod
+    def backward(ctx, g):
+        (rois,) = ctx.saved_tensors
+        df = roi_align_backward_cuda(g.contiguous(), rois, *ctx.geom)
+        return df, None, None, None, None, None
+
+
+def roi_align_cuda(fmap, rois, out_size: int = 7, spatial_scale: float = 1.0,
+                   sampling_ratio: int = 2, aligned: bool = True):
+    """(B, H, W, C) map, (B, R, 4) XYXY f32 rois → (B, R, O, O, C) in the
+    map's dtype (f32 or bf16). Differentiable with respect to the map."""
+    return _RoIAlign.apply(fmap, rois, out_size, spatial_scale,
+                           sampling_ratio, aligned)
+
+
 roi_align_cuda.launches = 0
+roi_align_backward_cuda.launches = 0

@@ -147,8 +147,11 @@ def test_import_pulls_in_no_jax():
         "import fgn_torch, fgn_torch.bridge, fgn_torch.models.fgn\n"
         "import fgn_torch.ops.roi_align_cuda, fgn_torch.ops.nms_cuda\n"
         "import fgn_torch.data.batching, fgn_torch.ops._build\n"
+        "import fgn_torch.train.optim, fgn_torch.train.train_step\n"
+        "import fgn_torch.ops.assign, fgn_torch.ops.sample\n"
+        "import fgn_torch.models.losses\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'fgn_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'fgn_tpu')]\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )

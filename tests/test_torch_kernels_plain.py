@@ -1,5 +1,6 @@
-"""The plain versions of fgn_torch's two CUDA kernels against the JAX
-package's Pallas TPU kernels (interpret mode) and plain references, on CPU.
+"""The plain versions of fgn_torch's CUDA kernels against the JAX package's
+Pallas TPU kernels (interpret mode), their custom VJP and plain references,
+on CPU.
 
 The CUDA kernels themselves run only on the card (``chip_smoke.py``); here
 each wrapper is called with CPU tensors, where it takes its plain version
@@ -8,9 +9,13 @@ and launches nothing.
 Tolerances: RoIAlign in f32 ≤ 1e-5 (the same hat-weight contractions,
 summed in another order by another library); bf16 in and out within
 2 bf16 ulp of the f32 result on the same bf16 inputs, the bound the JAX
-package's own test holds its kernel to. The NMS keep mask is exact.
+package's own test holds its kernel to. The RoIAlign backward (the map's
+gradient) in f32 within 1e-5 × max|df| of the JAX package's VJP; with a
+bf16 map and cotangent within 2 bf16 ulp of max|df|. The NMS keep mask is
+exact.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,7 +27,10 @@ from fgn_tpu.ops.roi_align import roi_align as j_roi_align
 from fgn_tpu.ops.roi_align_pallas import roi_align_pallas
 from fgn_torch.ops.nms import _greedy_alive, nms_padded
 from fgn_torch.ops.nms_cuda import greedy_alive_cuda
-from fgn_torch.ops.roi_align_cuda import _roi_align_plain, roi_align_cuda
+from fgn_torch.ops.roi_align_cuda import (
+    _roi_align_plain, _roi_align_plain_bwd, roi_align_backward_cuda,
+    roi_align_cuda,
+)
 
 torch.set_num_threads(2)
 
@@ -110,6 +118,93 @@ def test_roi_align_wrapper_rejects_other_devices():
     fmap = torch.zeros((1, 4, 4, 8), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         roi_align_cuda(fmap, torch.zeros((1, 1, 4), device="meta"))
+
+
+def _jax_vjp(fmap, rois, cot, out_size, aligned, roi_chunk, **kw):
+    """The map's gradient by the JAX package: the Pallas kernel's custom
+    VJP (interpret mode), and jax.grad of the gather form."""
+    def pallas(f):
+        return roi_align_pallas(f, jnp.asarray(rois), out_size, aligned=aligned,
+                                roi_chunk=roi_chunk, channel_block=8,
+                                interpret=True, **kw)
+
+    _, vjp = jax.vjp(pallas, jnp.asarray(fmap))
+    df_pallas = vjp(jnp.asarray(cot).astype(jnp.asarray(fmap).dtype))[0]
+    df_gather = jax.grad(lambda f: jnp.sum(
+        j_roi_align(f, jnp.asarray(rois), out_size, aligned=aligned, **kw)
+        * jnp.asarray(cot, jnp.float32)))(jnp.asarray(fmap, jnp.float32))
+    return np.asarray(df_pallas, np.float32), np.asarray(df_gather)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("roi_chunk", [1, 4])
+def test_roi_align_plain_bwd_matches_jax_vjp(rng, aligned, roi_chunk):
+    """ROIs inside, partly and wholly outside, of zero size; R = 6 not a
+    multiple of either package's ROI chunk."""
+    B, H, W, C = 2, 12, 14, 8
+    fmap = rng.rand(B, H, W, C).astype(np.float32)
+    cot = rng.randn(B, 6, 4, 4, C).astype(np.float32)
+    got = _roi_align_plain_bwd(_t(cot), _t(ROIS), H, W, torch.float32, 4,
+                               aligned=aligned, roi_chunk=roi_chunk).numpy()
+    pallas, gather = _jax_vjp(fmap, ROIS, cot, 4, aligned, roi_chunk)
+    scale = np.abs(pallas).max()
+    assert got.shape == (B, H, W, C)
+    assert np.abs(got - pallas).max() <= 1e-5 * scale
+    assert np.abs(got - gather).max() <= 1e-5 * scale
+    assert np.abs(got[0, :, :, 0]).max() > 0  # gradient reached the map
+
+
+def test_roi_align_plain_bwd_scale_and_bf16(rng):
+    """spatial_scale 1/16, 7x7 bins; then a bf16 map and cotangent: the
+    result in bf16, within 2 bf16 ulp of max|df| of the f32 gradient on the
+    same bf16 inputs."""
+    B, H, W, C = 1, 8, 8, 16
+    rois = (rng.rand(B, 5, 4).astype(np.float32) * 60).reshape(B, 5, 4)
+    rois[..., 2:] = rois[..., :2] + 30
+    cot = rng.randn(B, 5, 7, 7, C).astype(np.float32)
+    fmap = rng.rand(B, H, W, C).astype(np.float32)
+    got = _roi_align_plain_bwd(_t(cot), _t(rois), H, W, torch.float32, 7,
+                               spatial_scale=1 / 16).numpy()
+    pallas, gather = _jax_vjp(fmap, rois, cot, 7, True, 4, spatial_scale=1 / 16)
+    scale = np.abs(pallas).max()
+    assert np.abs(got - pallas).max() <= 1e-5 * scale
+    assert np.abs(got - gather).max() <= 1e-5 * scale
+
+    cot16 = torch.from_numpy(cot).to(torch.bfloat16)
+    got16 = _roi_align_plain_bwd(cot16, _t(rois), H, W, torch.bfloat16, 7,
+                                 spatial_scale=1 / 16)
+    assert got16.dtype == torch.bfloat16
+    ref = _roi_align_plain_bwd(cot16.float(), _t(rois), H, W, torch.float32, 7,
+                               spatial_scale=1 / 16).numpy()
+    bound = 2 * 2.0 ** -8 * np.abs(ref).max()
+    assert np.abs(got16.float().numpy() - ref).max() <= bound
+    pallas16, _ = _jax_vjp(
+        jnp.asarray(fmap, jnp.bfloat16), rois,
+        np.asarray(jnp.asarray(cot16.float().numpy(), jnp.bfloat16)), 7, True,
+        4, spatial_scale=1 / 16)
+    assert np.abs(got16.float().numpy() - pallas16).max() <= bound
+
+
+def test_roi_align_autograd_uses_plain_bwd_on_cpu(rng):
+    """On CPU tensors roi_align_cuda's backward is _roi_align_plain_bwd,
+    through roi_align_backward_cuda, and launches nothing; no gradient
+    reaches the ROIs."""
+    fmap = _t(rng.rand(2, 12, 14, 8).astype(np.float32)).requires_grad_()
+    rois = _t(ROIS).requires_grad_()
+    cot = _t(rng.randn(2, 6, 7, 7, 8).astype(np.float32))
+    before = (roi_align_cuda.launches, roi_align_backward_cuda.launches)
+    out = roi_align_cuda(fmap, rois, 7, spatial_scale=0.5)
+    out.backward(cot)
+    want = _roi_align_plain_bwd(cot, _t(ROIS), 12, 14, torch.float32, 7,
+                                spatial_scale=0.5)
+    assert torch.equal(fmap.grad, want)
+    assert torch.equal(roi_align_backward_cuda(cot, _t(ROIS), 12, 14, 7,
+                                               spatial_scale=0.5), want)
+    assert rois.grad is None
+    assert (roi_align_cuda.launches, roi_align_backward_cuda.launches) == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        roi_align_backward_cuda(torch.zeros((1, 1, 7, 7, 8), device="meta"),
+                                torch.zeros((1, 1, 4), device="meta"), 4, 4)
 
 
 def _sorted_boxes(seed, B, Mp, n_valid):
