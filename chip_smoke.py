@@ -4,10 +4,12 @@
     python3 chip_smoke.py
 
 Builds fgn_torch's CUDA kernels from ``fgn_torch/csrc`` with nvcc (sm_90a)
-and holds each against its plain PyTorch version: RoIAlign forward (K1)
+and holds each against its plain PyTorch version: RoIAlign forward (K1,
+its staged kernel and, for maps too large to stage, its direct kernel)
 and backward (K1-bwd), and the greedy-NMS keep mask (K2), on edge cases
-and at the shapes of the main paths. Then it drives both paths through the
-kernels with launch counters:
+and at the shapes of the main paths; K1's staged kernel is timed beside
+the direct one at every main-path call. Then it drives both paths through
+the kernels with launch counters:
 
   * episodic inference, ``FGN.test_forward`` (R50-C4, N3K3, 480 px, batch
     8, bf16, seeded random weights), compared as a whole against its
@@ -17,7 +19,8 @@ kernels with launch counters:
     training twin at b2 through the kernels and through the plain versions.
 
 With ``--profile`` it also prints where the device time of one flagship
-forward and of one train step goes (torch.profiler).
+forward and of one train step goes (torch.profiler), and K1's staged
+kernel at other channel tiles and ROI groups than its rules pick.
 
 Prints its measurements on earlier lines; the line before the last is one
 JSON object of the kernels, the last line is
@@ -108,41 +111,135 @@ def random_rois(gen, B, R, extent, dev):
     return rois.to(dev).contiguous()
 
 
-def phase_roi_align(dev, shapes):
+def k1_forward(fmap, rois, out_size=7, spatial_scale=1.0, sampling_ratio=2,
+               aligned=True):
+    """K1's forward on roi_align_cuda's arguments without its autograd
+    Function: the kernel the wrapper picks."""
+    from fgn_torch.ops.roi_align_cuda import _roi_align_forward
+
+    return _roi_align_forward(fmap, rois, out_size, spatial_scale,
+                              sampling_ratio, aligned)
+
+
+def k1_direct(fmap, rois, out_size=7, spatial_scale=1.0, sampling_ratio=2,
+              aligned=True):
+    """K1's direct kernel (the design the staged kernel replaced) on the
+    same arguments whatever the map, through its C entry point: to compare
+    and time it beside the staged kernel, so no launch counter moves."""
+    import torch
+
+    from fgn_torch.ops import _build
+    from fgn_torch.ops.roi_align_cuda import _DTYPES, _check
+
+    S = max(int(sampling_ratio), 1)
+    _check(fmap, rois, out_size, S, "k1_direct")
+    B, H, W, C = fmap.shape
+    R = rois.shape[1]
+    out = torch.empty((B, R, out_size, out_size, C), dtype=fmap.dtype,
+                      device=fmap.device)
+    lib = _build.load("roi_align")
+    rc = lib.fgn_roi_align_forward(
+        fmap.data_ptr(), rois.data_ptr(), out.data_ptr(), B, H, W, C, R,
+        out_size, S, float(spatial_scale), int(bool(aligned)),
+        _DTYPES[fmap.dtype], torch.cuda.current_stream(fmap.device).cuda_stream)
+    _build.check(lib, "fgn_roi_align_error_string", rc,
+                 "roi_align direct kernel")
+    return out
+
+
+def device_ms(fn, n=10, iters=5):
+    """Time on the card of one fn() call without the host time around its
+    launches: the card first sleeps (~10 ms) while the host queues n calls
+    between two CUDA events, which it then runs back to back. Median over
+    iters, per call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def k1_landed(fn, *a, **k):
+    """fn(*a, **k) → (its result, the K1 design whose counter it moved)."""
+    from fgn_torch.ops.roi_align_cuda import roi_align_cuda as rac
+
+    before = (rac.launches, rac.launches_direct)
+    out = fn(*a, **k)
+    moved = (rac.launches - before[0], rac.launches_direct - before[1])
+    check(moved in ((1, 0), (0, 1)), f"K1 launches moved by {moved}")
+    return out, "staged" if moved == (1, 0) else "direct"
+
+
+def phase_roi_align(dev, shapes, **over):
     """K1 against its plain version (and the gather form) at the given
     (name, B, h, w, C, R) shapes, on ROIs inside, partly and wholly outside
-    the map, and of zero size."""
+    the map, and of zero size: the kernel the wrapper picks, whose launch
+    must land on the counter of the kernel ``_channel_tile`` names, and the
+    direct kernel. ``over`` replaces roi_align_cuda's keywords (out_size 7,
+    spatial_scale 1/16)."""
     import torch
 
     from fgn_torch.ops.roi_align import roi_align
-    from fgn_torch.ops.roi_align_cuda import _roi_align_plain, roi_align_cuda
+    from fgn_torch.ops.roi_align_cuda import (
+        _channel_tile, _roi_align_plain, roi_align_cuda,
+    )
 
     gen = torch.Generator().manual_seed(1)
     with strict_f32():  # TF32 would be the plain version's largest error
         for name, B, h, w, C, R in shapes:
             fmap32 = torch.rand((B, h, w, C), generator=gen).to(dev)
             rois = random_rois(gen, B, R, 16 * max(h, w), dev)
-            kw = dict(out_size=7, spatial_scale=1.0 / 16)
-            # f32, TF32 off: the order of summation is the only difference
-            got = roi_align_cuda(fmap32, rois, **kw)
+            kw = dict(dict(out_size=7, spatial_scale=1.0 / 16), **over)
             ref = _roi_align_plain(fmap32, rois, **kw)
-            gat = roi_align(fmap32, rois, 7, spatial_scale=1.0 / 16)
+            gat = roi_align(fmap32, rois, **kw)
             scale = float(ref.abs().max().clamp(min=1e-30))
-            e32 = float((got - ref).abs().max())
-            eg = float((got - gat).abs().max())
-            check(e32 <= 1e-5 * scale, f"K1 f32 {name}: {e32} > 1e-5 * {scale}")
-            check(eg <= 1e-5 * scale, f"K1 vs gather {name}: {eg}")
-            # bf16 in and out: one rounding of an f32 sum, <= 2 bf16 ulp
             fmap = fmap32.to(torch.bfloat16)
-            got16 = roi_align_cuda(fmap, rois, **kw)
             ref16 = _roi_align_plain(fmap.float(), rois, **kw)
-            check(got16.dtype == torch.bfloat16, "K1 bf16 out dtype")
-            e16 = float((got16.float() - ref16).abs().max())
             bound16 = 2 * 2.0 ** -8 * float(ref16.abs().max())
-            check(e16 <= bound16, f"K1 bf16 {name}: {e16} > 2 ulp {bound16}")
-            print(f"K1 roi_align {name} B={B} map={h}x{w}x{C} R={R}: f32 err "
-                  f"{e32:.3g} (vs gather {eg:.3g}, scale {scale:.3g}); bf16 err "
-                  f"{e16:.3g} <= {bound16:.3g}", flush=True)
+            line = []
+            for picked in (True, False):
+                if picked:  # the kernel the wrapper picks, by the shape rule
+                    # f32, TF32 off: the order of summation is the only
+                    # difference; bf16 in and out: one rounding of an f32
+                    # sum, <= 2 bf16 ulp
+                    got, d32 = k1_landed(roi_align_cuda, fmap32, rois, **kw)
+                    got16, d16 = k1_landed(roi_align_cuda, fmap, rois, **kw)
+                    for dt, d in ((torch.float32, d32), (torch.bfloat16, d16)):
+                        tile = _channel_tile(h, w, C, dt, kw["out_size"],
+                                             kw.get("sampling_ratio", 2))
+                        want = "direct" if tile is None else "staged"
+                        check(d == want, f"K1 {name} {dt}: launch landed on "
+                                         f"{d}, want {want}")
+                else:  # the direct kernel, whatever the map
+                    got, got16 = k1_direct(fmap32, rois, **kw), k1_direct(
+                        fmap, rois, **kw)
+                    d32 = d16 = "direct"
+                e32 = float((got - ref).abs().max())
+                eg = float((got - gat).abs().max())
+                check(got16.dtype == torch.bfloat16, "K1 bf16 out dtype")
+                e16 = float((got16.float() - ref16).abs().max())
+                tag = f"{d32}/{d16}"
+                check(e32 <= 1e-5 * scale,
+                      f"K1 {tag} f32 {name}: {e32} > 1e-5 * {scale}")
+                check(eg <= 1e-5 * scale, f"K1 {tag} vs gather {name}: {eg}")
+                check(e16 <= bound16, f"K1 {tag} bf16 {name}: {e16} > 2 ulp "
+                                      f"{bound16}")
+                line.append(f"{tag} (f32/bf16): f32 err {e32:.3g} (vs gather "
+                            f"{eg:.3g}), bf16 err {e16:.3g}")
+            print(f"K1 roi_align {name} B={B} map={h}x{w}x{C} R={R} {over}, scale "
+                  f"{scale:.3g}, bf16 bound {bound16:.3g}: " + "; ".join(line),
+                  flush=True)
 
 
 def phase_roi_align_backward(dev, shapes):
@@ -267,6 +364,7 @@ def zero_counts():
     )
 
     roi_align_cuda.launches = 0
+    roi_align_cuda.launches_direct = 0
     roi_align_backward_cuda.launches = 0
     greedy_alive_cuda.launches = 0
 
@@ -278,12 +376,17 @@ def read_counts():
     )
 
     return {"roi_align": roi_align_cuda.launches,
+            "roi_align_direct": roi_align_cuda.launches_direct,
             "roi_align_backward": roi_align_backward_cuda.launches,
             "nms_keep": greedy_alive_cuda.launches}
 
 
-SERVE_KERNELS = {"roi_align": 3, "roi_align_backward": 0, "nms_keep": 2}
-TRAIN_KERNELS = {"roi_align": 2, "roi_align_backward": 2, "nms_keep": 1}
+# K1's launches are its staged kernel's; no map of a main path takes the
+# direct kernel.
+SERVE_KERNELS = {"roi_align": 3, "roi_align_direct": 0,
+                 "roi_align_backward": 0, "nms_keep": 2}
+TRAIN_KERNELS = {"roi_align": 2, "roi_align_direct": 0,
+                 "roi_align_backward": 2, "nms_keep": 1}
 
 
 def counted_forward(model, batch):
@@ -365,6 +468,85 @@ def phase_main_path(dev, gpu, B=8, H=480, W=480, S=128, iters=10,
     return counts, model, batch, capture_kernel_calls(model, batch)
 
 
+def k1_record(where, i, a, k, iters=20):
+    """K1 at one call of a main path (roi_align_cuda's arguments a, k): the
+    staged kernel (which the call must take) and the direct kernel, each
+    held against the plain version; both timed in turns, staged, direct,
+    direct, staged, over runs of ``reps`` launches (CUDA events, so a call
+    shorter than its host time reads as the host time), and on the card
+    alone (``device_ms``), beside the plain version and the bound. → its
+    record."""
+    from fgn_torch.ops.roi_align_cuda import _roi_align_plain, roi_align_cuda
+
+    fmap, rois = a[0], a[1]
+    got, design = k1_landed(roi_align_cuda, *a, **k)
+    check(design == "staged", f"K1 {where} call {i} took the {design} kernel")
+    old = k1_direct(*a, **k)
+    with strict_f32():
+        ref = _roi_align_plain(fmap.float(), *a[1:], **k)
+    err = float((got.float() - ref).abs().max())
+    err_old = float((old.float() - ref).abs().max())
+    bound = 2 * 2.0 ** -8 * float(ref.abs().max())
+    check(err <= bound, f"K1 {where} call {i}: {err} > 2 ulp {bound}")
+    check(err_old <= bound, f"K1 direct {where} call {i}: {err_old} > {bound}")
+    reps = 10
+
+    def run(fn):
+        return lambda: [fn(*a, **k) for _ in range(reps)]
+
+    times = [cuda_ms(run(fn), iters) / reps
+             for fn in (k1_forward, k1_direct, k1_direct, k1_forward)]
+    ms, earlier_ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+    dev_ms, dev_old = (device_ms(lambda: fn(*a, **k))
+                       for fn in (k1_forward, k1_direct))
+    plain_ms = cuda_ms(lambda: _roi_align_plain(*a, **k), 3, warmup=1)
+    # the map and rois read once, the output written once; 16 corner
+    # weights, a multiply-add each, per output element
+    nbytes = (fmap.numel() * fmap.element_size() + rois.numel() * 4
+              + got.numel() * got.element_size())
+    ops = 2 * 16 * got.numel()
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / F32_FLOPS_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    print(f"roi_align {where} call {i}: map {tuple(fmap.shape)} "
+          f"{str(fmap.dtype)[6:]}, rois {tuple(rois.shape)}: err {err:.3g} "
+          f"(direct {err_old:.3g}); staged {ms:.4f} ms ({times[0]:.4f}, "
+          f"{times[3]:.4f}; on the card {dev_ms:.4f}), direct "
+          f"{earlier_ms:.4f} ms ({times[1]:.4f}, {times[2]:.4f}; on the card "
+          f"{dev_old:.4f}), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+          f"({'bytes' if t_bytes >= t_ops else 'operations'})", flush=True)
+    return dict(
+        name="roi_align", route="cuda", source="fgn_torch/csrc/roi_align.cu",
+        replaces="roi_align_pallas.py:264", max_abs_err=err, ms=ms,
+        earlier_ms=earlier_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None, _size=got.numel(),
+    )
+
+
+def k1_sweep(a, k):
+    """K1's staged kernel at one call with other channel tiles and ROI
+    groups than its rules pick (``--profile`` only): time on the card
+    (``device_ms``) for each, to show where the rules' choice stands."""
+    import fgn_torch.ops.roi_align_cuda as rac
+
+    fmap = a[0]
+    B, H, W, C = fmap.shape
+    tile = rac._channel_tile(H, W, C, fmap.dtype)
+    rule = (tile, rac._rois_per_block(B, C // tile, a[1].shape[1],
+                                      rac._sm_count(fmap.device)))
+    res = []
+    for tile in (16, 32, 64):
+        for per in sorted({rule[1], 64, 24, 16}, reverse=True):
+            with mock.patch.object(rac, "_channel_tile", lambda *_a, **_k: tile), \
+                    mock.patch.object(rac, "_rois_per_block",
+                                      lambda *_a, **_k: per):
+                res.append(f"{tile}/{per} {device_ms(lambda: k1_forward(*a, **k)):.4f}")
+    print(f"K1 staged sweep at map {tuple(fmap.shape)}, rois "
+          f"{tuple(a[1].shape)}: ms on the card by channel tile/ROIs per "
+          f"block (the rules pick {rule[0]}/{rule[1]}): " + ", ".join(res),
+          flush=True)
+
+
 def kernel_records(calls, iters=20):
     """Each kernel on the inputs the main path gave it: held against its
     plain version, timed beside its plain version and its bound. Returns
@@ -373,26 +555,11 @@ def kernel_records(calls, iters=20):
 
     from fgn_torch.ops.nms import _greedy_alive
     from fgn_torch.ops.nms_cuda import greedy_alive_cuda
-    from fgn_torch.ops.roi_align_cuda import _roi_align_plain, roi_align_cuda
 
     recs = {}
     for i, (name, a, k) in enumerate(calls):
         if name == "roi_align":
-            fmap, rois = a[0], a[1]
-            got = roi_align_cuda(*a, **k)
-            with strict_f32():
-                ref = _roi_align_plain(fmap.float(), *a[1:], **k)
-            err = float((got.float() - ref).abs().max())
-            bound = 2 * 2.0 ** -8 * float(ref.abs().max())
-            check(err <= bound, f"K1 main-path call {i}: {err} > 2 ulp {bound}")
-            ms = cuda_ms(lambda: roi_align_cuda(*a, **k), iters)
-            plain_ms = cuda_ms(lambda: _roi_align_plain(*a, **k), 3, warmup=1)
-            nbytes = (fmap.numel() * fmap.element_size() + rois.numel() * 4
-                      + got.numel() * got.element_size())
-            ops = 2 * 16 * got.numel()
-            size = got.numel()
-            desc = (f"map {tuple(fmap.shape)} {str(fmap.dtype)[6:]}, "
-                    f"rois {tuple(rois.shape)}")
+            rec = k1_record("main-path", i, a, k, iters)
         else:
             boxes, alive, thr = a[0], a[1], a[2]
             got = greedy_alive_cuda(*a, **k)
@@ -414,21 +581,21 @@ def kernel_records(calls, iters=20):
             size = B * Mp
             desc = (f"boxes {tuple(boxes.shape)}, IoU {thr}, "
                     f"{int(alive.sum())} alive, {int(got.sum())} kept")
-        t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / F32_FLOPS_S
-        bound_ms = max(t_bytes, t_ops) * 1e3
-        print(f"{name} main-path call {i}: {desc}: err {err:.3g}; kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
-              f"({'bytes' if t_bytes >= t_ops else 'operations'})", flush=True)
-        rec = dict(
-            name=name, route="cuda",
-            source=f"fgn_torch/csrc/{'roi_align' if name == 'roi_align' else 'nms'}.cu",
-            replaces=("roi_align_pallas.py:264" if name == "roi_align"
-                      else "nms_pallas.py:157"),
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None, _size=size,
-        )
-        if name not in recs or size > recs[name]["_size"]:
+            t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / F32_FLOPS_S
+            bound_ms = max(t_bytes, t_ops) * 1e3
+            print(f"{name} main-path call {i}: {desc}: err {err:.3g}; kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{bound_ms:.5f} ms "
+                  f"({'bytes' if t_bytes >= t_ops else 'operations'})",
+                  flush=True)
+            rec = dict(
+                name=name, route="cuda", source="fgn_torch/csrc/nms.cu",
+                replaces="nms_pallas.py:157", max_abs_err=err, ms=ms,
+                earlier_ms=None, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None, _size=size,
+            )
+        if name not in recs or rec["_size"] > recs[name]["_size"]:
             recs[name] = rec
     for rec in recs.values():
         rec.pop("_size")
@@ -562,11 +729,13 @@ def phase_train(dev, gpu, B=12, warmup=2, iters=5, profile=False):
     """The full-width trainer: make_train_step (train_forward, backward,
     Adam at make_lr_schedule(5e-3, steps_per_epoch=1000)) on the flagship
     at b12 bf16. Each timed step runs with the launch counters set to 0
-    just before it and read just after. → (counts of one step, the K1-bwd
-    calls of one more step). With ``profile``, one more step is profiled:
-    its forward by stage, and the whole step by op."""
+    just before it and read just after. → (counts of one step, the K1
+    forward and the K1-bwd calls of one more step). With ``profile``, one
+    more step is profiled: its forward by stage, and the whole step by
+    op."""
     import torch
 
+    import fgn_torch.models.fgn as fgn_mod
     import fgn_torch.ops.roi_align_cuda as rac
     from fgn_torch.data.batching import to_device, toy_batch
     from fgn_torch.models.fgn import build_model
@@ -625,24 +794,29 @@ def phase_train(dev, gpu, B=12, warmup=2, iters=5, profile=False):
           "gaps inside a part included): " + ", ".join(
               f"{k} {v:.3f} ms" for k, v in split.items()), flush=True)
 
-    calls = []
-    real = rac.roi_align_backward_cuda
+    calls, fwd_calls = [], []
+    real, real_fwd = rac.roi_align_backward_cuda, fgn_mod.roi_align_cuda
 
     def recorder(*a, **k):
         calls.append((a, k))
         return real(*a, **k)
 
-    # the wrapper counts its launches on the module's name, the recorder
-    # while it stands in: this capture step is not counted
+    def fwd_recorder(fmap, *a, **k):
+        fwd_calls.append(((fmap.detach(),) + a, k))
+        return real_fwd(fmap, *a, **k)
+
+    # the wrappers count their launches on the module's names, the
+    # recorders while they stand in: this capture step is not counted
     recorder.launches = 0
-    with mock.patch.object(rac, "roi_align_backward_cuda", recorder):
+    with mock.patch.object(rac, "roi_align_backward_cuda", recorder), \
+            mock.patch.object(fgn_mod, "roi_align_cuda", fwd_recorder):
         step(batch, gen)
     if profile:
         phase_breakdown(
             "train step", lambda: step(batch, gen),
             [(model, s) for s in TRAIN_STAGES])
     del model, opt, before, batch
-    return counts[0], calls
+    return counts[0], fwd_calls, calls
 
 
 def step_split(step, model, opt, batch, gen, iters=3):
@@ -727,7 +901,8 @@ def backward_record(calls, iters=20):
                 name="roi_align_backward", route="cuda",
                 source="fgn_torch/csrc/roi_align.cu",
                 replaces="roi_align_pallas.py:146",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                max_abs_err=err, ms=ms, earlier_ms=None, plain_ms=plain_ms,
+                bound_ms=bound_ms,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 library_ms=None, _size=g.numel(),
             )
@@ -738,12 +913,16 @@ def backward_record(calls, iters=20):
 def phase_train_twin(dev, B=2):
     """train_forward + backward at f32 (TF32 off) through the kernels, twice,
     and through the plain versions, same weights, same generator seed:
-    identical proposals, losses within 1e-5 relative, and each parameter's
+    identical proposals, losses within 1e-5 relative, K1's forward within
+    1e-5 of its output's scale at each of its calls, and each parameter's
     gradient within 1e-4 of its largest magnitude. Where the f32 gradient
     of this network amplifies rounding (the two kernel runs, whose atomics
     add in different orders, then differ too), the kernel-vs-plain
     difference must stay within twice the largest kernel-vs-kernel
-    difference."""
+    difference. The forward's rounding is amplified most: a change in the
+    last bits of RoIAlign's output flips the sign of a few inputs of the
+    ReLUs after the relation head's GroupNorm and the mask head's convs
+    (``twin_sensitivity.py`` shows where)."""
     import contextlib as cl
 
     import torch
@@ -765,12 +944,17 @@ def phase_train_twin(dev, B=2):
         return rac._roi_align_plain_bwd(g, rois, H, W, g.dtype, *a)
 
     def run(plain):
-        props = []
-        real = model.get_proposals
+        props, k1 = [], []
+        real, real_fwd = model.get_proposals, rac._roi_align_forward
 
         def rec(*a, **k):
             out = real(*a, **k)
             props.append([t.clone() for t in out])
+            return out
+
+        def fwd_rec(*a):
+            out = real_fwd(*a)
+            k1.append((a, out.detach().clone()))
             return out
 
         with cl.ExitStack() as st:
@@ -783,6 +967,9 @@ def phase_train_twin(dev, B=2):
                     rac, "roi_align_backward_cuda", plain_bwd))
                 st.enter_context(mock.patch.object(
                     fgn_mod, "greedy_alive_cuda", _greedy_alive))
+            else:
+                st.enter_context(mock.patch.object(rac, "_roi_align_forward",
+                                                   fwd_rec))
             model.zero_grad(set_to_none=True)
             torch.cuda.synchronize()
             zero_counts()
@@ -794,24 +981,30 @@ def phase_train_twin(dev, B=2):
         grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
                  if p.grad is not None}
         return ({k: float(v.detach()) for k, v in losses.items()}, grads,
-                props[0], counts)
+                props[0], counts, k1)
 
-    l1, g1, p1, c1 = run(False)
-    l2, g2, _, _ = run(False)
-    lp, gp, pp, cp = run(True)
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    l1, g1, p1, c1, k1 = run(False)
+    l2, g2, _, _, _ = run(False)
+    lp, gp, pp, cp, _ = run(True)
     check(c1 == TRAIN_KERNELS, f"f32 train twin: kernel run launches {c1}")
     check(cp == {k: 0 for k in TRAIN_KERNELS},
           f"f32 train twin: plain run launched {cp}")
     for a, b in zip(p1, pp):
         check(torch.equal(a, b), "f32 train twin: proposals not identical")
+    k1_err = []
+    for i, (args, out) in enumerate(k1):
+        with strict_f32(), torch.no_grad():
+            k1_err.append(rel(out, rac._roi_align_plain(*args)))
+        check(k1_err[-1] <= 1e-5, f"f32 train twin: K1 call {i} differs by "
+                                  f"{k1_err[-1]:.3g} of its scale")
     for k in l1:
         if k.startswith("loss_"):
             check(abs(l1[k] - lp[k]) <= 1e-5 * max(abs(lp[k]), 1e-12),
                   f"f32 train twin: {k} {l1[k]} vs plain {lp[k]}")
     check(set(g1) == set(gp), "f32 train twin: different parameters have grads")
-
-    def rel(a, b):
-        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
 
     noise = max(rel(g1[n], g2[n]) for n in gp)
     worst = sorted(((rel(g1[n], gp[n]), n) for n in gp), reverse=True)
@@ -822,7 +1015,8 @@ def phase_train_twin(dev, B=2):
               f"(kernel-vs-kernel noise {noise:.3g})")
     print(f"f32 train twin b{B}: proposals identical, losses within 1e-5 "
           f"({ {k: round(v, 6) for k, v in lp.items() if k.startswith('loss_')} }); "
-          f"gradients: {strict}/{len(worst)} leaves within 1e-4 of scale, worst "
+          f"K1 forward vs plain " + ", ".join(f"{e:.3g}" for e in k1_err)
+          + f" of scale; gradients: {strict}/{len(worst)} leaves within 1e-4 of scale, worst "
           f"{worst[0][0]:.3g} ({worst[0][1]}), kernel-vs-kernel noise "
           f"{noise:.3g}", flush=True)
 
@@ -831,7 +1025,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one flagship forward and one train "
-                         "step by stage and op")
+                         "step by stage and op, and sweep K1's channel "
+                         "tiles and ROI groups at its largest call")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -869,7 +1064,14 @@ def main(argv=None):
         ("support", 72, 8, 8, 1024, 1),
         ("proposals", 8, 30, 30, 1024, 300),
         ("detections", 8, 30, 30, 1024, 100),
+        ("coco2voc", 4, 50, 68, 1024, 300),  # ragged: 50x68 in 16-ch tiles
+        ("large", 1, 128, 128, 128, 64),  # past shared memory: direct
     ])
+    # the staged kernel's generic instance (out_size, sampling ratio not
+    # compiled in), which no call of the model takes
+    phase_roi_align(dev, [("generic", 2, 30, 30, 256, 40)], out_size=14)
+    phase_roi_align(dev, [("generic", 2, 12, 14, 256, 20)], out_size=4,
+                    sampling_ratio=3, aligned=False)
     phase_roi_align_backward(dev, [
         ("supports", 108, 8, 8, 1024, 1),
         ("sampled", 12, 30, 30, 1024, 128),
@@ -882,6 +1084,9 @@ def main(argv=None):
     if args.profile:
         import fgn_torch.models.fgn as fgn_mod
 
+        k1_sweep(*max(((a, k) for name, a, k in calls if name == "roi_align"),
+                      key=lambda c: c[0][1].shape[1]))
+
         phase_breakdown(
             "forward", lambda: model.test_forward(batch),
             [(model, s) for s in STAGES] + [(fgn_mod, "batched_nms")])
@@ -892,10 +1097,13 @@ def main(argv=None):
     phase_main_path(dev, gpu, B=4, H=800, W=1088, S=256, iters=5,
                     tag="coco2voc", rpn_test_nms_pre=6144)
     torch.cuda.empty_cache()
-    train_counts, bwd_calls = phase_train(dev, gpu, profile=args.profile)
+    train_counts, fwd_calls, bwd_calls = phase_train(dev, gpu,
+                                                     profile=args.profile)
+    for i, (a, k) in enumerate(fwd_calls):
+        k1_record("train-path", i, a, k)
     recs["roi_align_backward"] = backward_record(bwd_calls)
     recs["roi_align_backward"]["launches"] = train_counts["roi_align_backward"]
-    del bwd_calls
+    del fwd_calls, bwd_calls
     torch.cuda.empty_cache()
     phase_train_twin(dev)
     print(f"phases: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -904,7 +1112,8 @@ def main(argv=None):
     for rec in (recs["roi_align"], recs["roi_align_backward"], recs["nms_keep"]):
         kernels.append({k: rec[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+            "ms", "earlier_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")})
     print(gpu_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

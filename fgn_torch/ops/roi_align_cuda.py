@@ -12,15 +12,80 @@ the TPU kernel's arithmetic in torch: hat-weight matrices
 (``_hat_weights``/``_roi_weights``) and a pair of contractions, f32
 accumulation, one rounding to the map's dtype; the backward is the JAX
 ``f_bwd``'s pair of einsums, chunked over ROIs.
+
+The forward has two kernels. The staged one copies each image's (H, W, Ct)
+channel slice into shared memory once and reads every corner from there;
+``_channel_tile`` picks Ct and ``_rois_per_block`` the ROI groups. A map
+whose slice does not fit at Ct = 8 (or whose data is not 16-byte aligned)
+takes the direct kernel, which reads the corners from device memory; its
+launches are counted apart, in ``roi_align_cuda.launches_direct``.
+``_bin_lists`` and ``_roi_align_separable`` repeat the staged kernel's
+merged corner lists and order of summation in torch, for the tests.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from fgn_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The staged forward kernel's shared memory (csrc/roi_align.cu): a block may
+# use up to _SMEM_MAX bytes; two blocks fit on an SM (228 KB, less 1 KB the
+# card keeps per block) at _SMEM_TWO_BLOCKS or less. A block builds the bin
+# lists of _ROI_CHUNK ROIs at a time, beside the channel slice.
+_SMEM_MAX = 232_448
+_SMEM_TWO_BLOCKS = 115_712
+_ROI_CHUNK = 8
+_TILES = (128, 64, 32, 16, 8)
+
+
+def _list_bytes(out_size: int, S: int) -> int:
+    """Shared memory of one chunk's bin lists (``staged_list_bytes``)."""
+    return _ROI_CHUNK * (2 * out_size * 2 * S * 8 + 2 * out_size * 4)
+
+
+def _channel_tile(H: int, W: int, C: int, dtype, out_size: int = 7,
+                  S: int = 2):
+    """Channels per block of the staged forward kernel: the largest power of
+    two from 8 to 128 that divides C and keeps the (H, W, Ct) slice and the
+    bin lists within ``_SMEM_TWO_BLOCKS``; failing that, the smallest that
+    fits within ``_SMEM_MAX``. None when no tile fits: the map then takes
+    the direct kernel."""
+    esize = torch.finfo(dtype).bits // 8
+    need = {ct: H * W * ct * esize + _list_bytes(out_size, S) for ct in _TILES
+            if C % ct == 0}
+    fits = [ct for ct, n in need.items() if n <= _SMEM_MAX]
+    two = [ct for ct in fits if need[ct] <= _SMEM_TWO_BLOCKS]
+    return two[0] if two else (fits[-1] if fits else None)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _rois_per_block(B: int, tiles: int, R: int, sms: int) -> int:
+    """ROIs per block of the staged kernel, a multiple of ``_ROI_CHUNK``:
+    the ROIs of an image are split into groups so that the grid (groups ×
+    tiles × B blocks) has 16 blocks per SM, keeping two chunks or more per
+    block. Many short blocks balance the ROIs' uneven work; each block
+    copies its slice, so a block of one chunk costs more than it gains
+    (measured on an H100, PERF.md)."""
+    chunks = -(-R // _ROI_CHUNK)
+    want = -(-16 * sms // (B * tiles))
+    return min(chunks, max(2, chunks // want)) * _ROI_CHUNK
+
+
+def _div(x, d):
+    """x / d for a Python number d, rounded as IEEE division on every
+    device: a CUDA tensor divided by a Python number is multiplied by its
+    reciprocal, which can round differently in the last bit and move a
+    sample point off the one the kernels compute."""
+    return x / torch.full_like(x, float(d))
 
 
 def _hat_weights(start, bin_size, size: int, out_size: int, ratio: int):
@@ -29,7 +94,7 @@ def _hat_weights(start, bin_size, size: int, out_size: int, ratio: int):
     dev = start.device
     grid = (
         torch.arange(O, dtype=torch.float32, device=dev)[:, None]
-        + (torch.arange(S, dtype=torch.float32, device=dev)[None, :] + 0.5) / S
+        + _div(torch.arange(S, dtype=torch.float32, device=dev)[None, :] + 0.5, S)
     )  # (O, S)
     pts = start[..., None, None] + bin_size[..., None, None] * grid  # (..., O, S)
     oob = (pts <= -1.0) | (pts >= size)
@@ -40,7 +105,47 @@ def _hat_weights(start, bin_size, size: int, out_size: int, ratio: int):
     return w.sum(dim=-2) / float(S)  # (..., O, size)
 
 
-def _roi_weights(rois, H, W, O, spatial_scale, sampling_ratio, aligned):
+def _bin_lists(start, bin_size, size: int, out_size: int, ratio: int):
+    """The staged kernel's merged corner lists of one axis, in torch:
+    (idx, w, n), each bin's (index, weight) pairs in the kernel's order
+    (sample by sample, lower corner first), a zero weight dropped, an index
+    already listed adding its weight there; (..., O, 2S) long and float32,
+    and the (..., O) count of pairs. Σ w over a bin's pairs at idx is
+    ``_hat_weights`` × S."""
+    O, S = out_size, ratio
+    dev = start.device
+    grid = (
+        torch.arange(O, dtype=torch.float32, device=dev)[:, None]
+        + _div(torch.arange(S, dtype=torch.float32, device=dev)[None, :] + 0.5, S)
+    )  # (O, S)
+    pts = start[..., None, None] + bin_size[..., None, None] * grid  # (..., O, S)
+    oob = (pts <= -1.0) | (pts >= size)
+    pc = pts.clamp(0.0, size - 1)
+    p0 = pc.floor()
+    lo = p0.long()
+    hi = (lo + 1).clamp(max=size - 1)
+    whi = torch.where(oob, torch.zeros((), device=dev), pc - p0)
+    wlo = torch.where(oob, torch.zeros((), device=dev), 1.0 - (pc - p0))
+    shape = pts.shape[:-1]
+    idx = torch.zeros(shape + (2 * S,), dtype=torch.long, device=dev)
+    w = torch.zeros(shape + (2 * S,), dtype=torch.float32, device=dev)
+    n = torch.zeros(shape, dtype=torch.long, device=dev)
+    slots = torch.arange(2 * S, device=dev)
+    for s in range(S):
+        for cid, cw in ((lo[..., s], wlo[..., s]), (hi[..., s], whi[..., s])):
+            keep = cw != 0
+            same = (idx == cid[..., None]) & (slots < n[..., None]) & keep[..., None]
+            w = w + torch.where(same, cw[..., None], torch.zeros((), device=dev))
+            new = keep & ~same.any(-1)
+            put = (slots == n[..., None]) & new[..., None]
+            idx = torch.where(put, cid[..., None], idx)
+            w = torch.where(put, cw[..., None], w)
+            n = n + new.long()
+    return idx, w, n
+
+
+def _roi_axes(rois, O, spatial_scale, aligned):
+    """Each ROI's (y start, bin height, x start, bin width) on the map."""
     offset = 0.5 if aligned else 0.0
     x1 = rois[..., 0] * spatial_scale - offset
     y1 = rois[..., 1] * spatial_scale - offset
@@ -49,8 +154,13 @@ def _roi_weights(rois, H, W, O, spatial_scale, sampling_ratio, aligned):
     if not aligned:
         rw = rw.clamp(min=1.0)
         rh = rh.clamp(min=1.0)
-    wy = _hat_weights(y1, rh / O, H, O, sampling_ratio)
-    wx = _hat_weights(x1, rw / O, W, O, sampling_ratio)
+    return y1, _div(rh, O), x1, _div(rw, O)
+
+
+def _roi_weights(rois, H, W, O, spatial_scale, sampling_ratio, aligned):
+    y1, bh, x1, bw = _roi_axes(rois, O, spatial_scale, aligned)
+    wy = _hat_weights(y1, bh, H, O, sampling_ratio)
+    wx = _hat_weights(x1, bw, W, O, sampling_ratio)
     return wy, wx
 
 
@@ -66,6 +176,33 @@ def _roi_align_plain(fmap, rois, out_size=7, spatial_scale=1.0,
     tmp = torch.einsum("brih,bhwc->briwc", wy, fmap.to(torch.float32))
     out = torch.einsum("briwc,brjw->brijc", tmp, wx)
     return out.to(fmap.dtype)
+
+
+def _roi_align_separable(fmap, rois, out_size=7, spatial_scale=1.0,
+                         sampling_ratio=2, aligned=True):
+    """The staged forward kernel's arithmetic in torch, for the tests:
+    out[i, j] = Σ_e wx[e] · (Σ_a wy[a] · f[y_a, x_e]) / S² over the merged
+    lists of ``_bin_lists``, in the kernel's order, f32. Materialises every
+    bin's corners: toy sizes only."""
+    B, H, W, C = fmap.shape
+    O, S = out_size, max(int(sampling_ratio), 1)
+    y1, bh, x1, bw = _roi_axes(rois.to(torch.float32), O, spatial_scale,
+                               aligned)
+    yi, yw, _ = _bin_lists(y1, bh, H, O, S)  # (B, R, O, 2S)
+    xi, xw, _ = _bin_lists(x1, bw, W, O, S)
+    f = fmap.to(torch.float32).reshape(B, H * W, C)
+    R = rois.shape[1]
+    acc = torch.zeros((B, R, O, O, C), dtype=torch.float32, device=fmap.device)
+    for e in range(2 * S):
+        col = torch.zeros_like(acc)
+        for a in range(2 * S):
+            pos = yi[..., :, None, a] * W + xi[..., None, :, e]  # (B, R, O, O)
+            corner = torch.gather(
+                f, 1, pos.reshape(B, -1, 1).expand(-1, -1, C)
+            ).reshape(B, R, O, O, C)
+            col = col + yw[..., :, None, a, None] * corner
+        acc = acc + xw[..., None, :, e, None] * col
+    return (acc / float(S * S)).to(fmap.dtype)
 
 
 def _roi_align_plain_bwd(g, rois, H: int, W: int, dtype, out_size=7,
@@ -111,8 +248,9 @@ def _check(fmap, rois, out_size, S, what):
 
 def _roi_align_forward(fmap, rois, out_size, spatial_scale, sampling_ratio,
                        aligned):
-    """Forward on the map's device: the plain version for a CPU tensor, the
-    kernel for a CUDA tensor."""
+    """Forward on the map's device: the plain version for a CPU tensor, a
+    kernel for a CUDA tensor: the staged kernel where ``_channel_tile``
+    finds a tile and the map is 16-byte aligned, else the direct kernel."""
     if fmap.device.type == "cpu":
         return _roi_align_plain(
             fmap, rois, out_size, spatial_scale, sampling_ratio, aligned
@@ -127,12 +265,23 @@ def _roi_align_forward(fmap, rois, out_size, spatial_scale, sampling_ratio,
                       device=fmap.device)
     if out.numel() == 0:
         return out
+    tile = None
+    if fmap.data_ptr() % 16 == 0:
+        tile = _channel_tile(H, W, C, fmap.dtype, out_size, S)
     lib = _build.load("roi_align")
-    rc = lib.fgn_roi_align_forward(
-        fmap.data_ptr(), rois.data_ptr(), out.data_ptr(), B, H, W, C, R,
-        out_size, S, float(spatial_scale), int(bool(aligned)),
-        _DTYPES[fmap.dtype], torch.cuda.current_stream(fmap.device).cuda_stream,
-    )
+    args = (fmap.data_ptr(), rois.data_ptr(), out.data_ptr(), B, H, W, C, R,
+            out_size, S, float(spatial_scale), int(bool(aligned)),
+            _DTYPES[fmap.dtype])
+    stream = torch.cuda.current_stream(fmap.device).cuda_stream
+    if tile is None:
+        rc = lib.fgn_roi_align_forward(*args, stream)
+        _build.check(lib, "fgn_roi_align_error_string", rc,
+                     "roi_align direct kernel")
+        roi_align_cuda.launches_direct += 1
+        return out
+    rc = lib.fgn_roi_align_forward_staged(
+        *args, tile, _rois_per_block(B, C // tile, R, _sm_count(fmap.device)),
+        stream)
     _build.check(lib, "fgn_roi_align_error_string", rc, "roi_align kernel")
     roi_align_cuda.launches += 1
     return out
@@ -200,5 +349,6 @@ def roi_align_cuda(fmap, rois, out_size: int = 7, spatial_scale: float = 1.0,
                            sampling_ratio, aligned)
 
 
-roi_align_cuda.launches = 0
+roi_align_cuda.launches = 0  # the staged forward kernel
+roi_align_cuda.launches_direct = 0  # the direct forward kernel
 roi_align_backward_cuda.launches = 0

@@ -6,6 +6,11 @@ The CUDA kernels themselves run only on the card (``chip_smoke.py``); here
 each wrapper is called with CPU tensors, where it takes its plain version
 and launches nothing.
 
+The staged forward kernel's shape rules (``_channel_tile``,
+``_rois_per_block``) and its arithmetic (``_bin_lists``, the merged corner
+lists, and ``_roi_align_separable``, the separable sum over them) are
+plain Python and torch, held here too.
+
 Tolerances: RoIAlign in f32 ≤ 1e-5 (the same hat-weight contractions,
 summed in another order by another library); bf16 in and out within
 2 bf16 ulp of the f32 result on the same bf16 inputs, the bound the JAX
@@ -28,7 +33,9 @@ from fgn_tpu.ops.roi_align_pallas import roi_align_pallas
 from fgn_torch.ops.nms import _greedy_alive, nms_padded
 from fgn_torch.ops.nms_cuda import greedy_alive_cuda
 from fgn_torch.ops.roi_align_cuda import (
-    _roi_align_plain, _roi_align_plain_bwd, roi_align_backward_cuda,
+    _SMEM_MAX, _SMEM_TWO_BLOCKS, _bin_lists, _channel_tile, _hat_weights,
+    _list_bytes, _roi_align_forward, _roi_align_plain, _roi_align_plain_bwd,
+    _roi_align_separable, _roi_axes, _rois_per_block, roi_align_backward_cuda,
     roi_align_cuda,
 )
 
@@ -118,6 +125,163 @@ def test_roi_align_wrapper_rejects_other_devices():
     fmap = torch.zeros((1, 4, 4, 8), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         roi_align_cuda(fmap, torch.zeros((1, 1, 4), device="meta"))
+
+
+# (H, W, C) of the maps the model gives RoIAlign: toy test maps (64 px
+# queries, 32 px supports at stride 16; the 12x14 map of the tests above),
+# 128 px supports, 480 px queries, COCO2VOC's 800x1088 queries. → the
+# staged kernel's tile in bf16 and f32.
+MAP_TILES = [
+    ((2, 2, 1024), 128, 128), ((4, 4, 1024), 128, 128),
+    ((12, 14, 8), 8, 8), ((12, 14, 128), 128, 128),
+    ((8, 8, 1024), 128, 128), ((30, 30, 1024), 32, 16),
+    ((50, 68, 1024), 16, 8),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hwc,bf16_tile,f32_tile", MAP_TILES)
+def test_channel_tile_of_the_model_maps(hwc, bf16_tile, f32_tile, dtype):
+    """Every map of the model takes the staged kernel: the tile divides C,
+    holds at least 8 channels (16 bytes), keeps the slice and the bin lists
+    within two blocks an SM, and is the largest such power of two."""
+    H, W, C = hwc
+    esize = 2 if dtype == torch.bfloat16 else 4
+    ct = _channel_tile(H, W, C, dtype)
+    assert ct == (bf16_tile if dtype == torch.bfloat16 else f32_tile)
+    assert C % ct == 0 and 8 <= ct <= 128 and ct & (ct - 1) == 0
+    assert ct * esize % 16 == 0
+    assert H * W * ct * esize + _list_bytes(7, 2) <= _SMEM_TWO_BLOCKS
+    if ct < 128 and C % (2 * ct) == 0:
+        assert H * W * 2 * ct * esize + _list_bytes(7, 2) > _SMEM_TWO_BLOCKS
+
+
+@pytest.mark.parametrize("H,W,C,dtype,want", [
+    (100, 100, 1024, torch.bfloat16, 8),   # fits one block an SM only
+    (60, 100, 1024, torch.float32, 8),
+    (128, 128, 128, torch.bfloat16, None),  # past the limit: direct kernel
+    (120, 120, 1024, torch.bfloat16, None),
+    (60, 120, 1024, torch.float32, None),
+    (30, 30, 12, torch.bfloat16, None),     # no tile of 8+ channels divides C
+    (30, 30, 4, torch.float32, None),
+])
+def test_channel_tile_limits(H, W, C, dtype, want):
+    assert _channel_tile(H, W, C, dtype) == want
+    esize = 2 if dtype == torch.bfloat16 else 4
+    if want is None and C % 8 == 0:
+        assert H * W * 8 * esize + _list_bytes(7, 2) > _SMEM_MAX
+    elif want is not None:
+        assert H * W * want * esize + _list_bytes(7, 2) <= _SMEM_MAX
+
+
+@pytest.mark.parametrize("B,tiles,R", [
+    (8, 32, 300), (8, 32, 100), (72, 8, 1), (12, 32, 128), (108, 8, 1),
+    (4, 64, 300), (1, 16, 64), (2, 1, 6),
+])
+def test_rois_per_block(B, tiles, R):
+    """Whole chunks of 8 ROIs, no empty block, two chunks or more per block
+    where there are two, and 16 blocks per SM (132) where the ROIs allow."""
+    per = _rois_per_block(B, tiles, R, sms=132)
+    groups = -(-R // per)
+    chunks = -(-R // 8)
+    assert per % 8 == 0 and per >= min(16, 8 * chunks)
+    assert (groups - 1) * per < R <= groups * per
+    assert groups * tiles * B >= min(16 * 132, tiles * B * (chunks // 2))
+
+
+def _axis_lists(rois, size, axis, O, S, scale, aligned):
+    y1, bh, x1, bw = _roi_axes(_t(rois), O, scale, aligned)
+    start, bin_size = (y1, bh) if axis == "y" else (x1, bw)
+    return (_bin_lists(start, bin_size, size, O, S),
+            _hat_weights(start, bin_size, size, O, S))
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("O,S", [(7, 2), (4, 2), (7, 1), (3, 3)])
+@pytest.mark.parametrize("axis", ["y", "x"])
+def test_bin_lists_reproduce_hat_weights(axis, O, S, aligned):
+    """The merged (index, weight) lists of every bin, summed, give
+    ``_hat_weights`` × S, on ROIs inside the map, straddling its edge,
+    wholly outside, of zero size, aligned and not; each list holds at most
+    2S distinct indices, and a bin narrower than a pixel at most S + 1."""
+    size = 12 if axis == "y" else 14
+    (idx, w, n), hat = _axis_lists(ROIS, size, axis, O, S, 1.0, aligned)
+    dense = torch.zeros(hat.shape, dtype=torch.float32).scatter_add_(
+        -1, idx, w)
+    np.testing.assert_allclose(dense.numpy(), (hat * S).numpy(), atol=1e-6)
+    assert int(n.max()) <= 2 * S
+    for lst, cnt in zip(idx.reshape(-1, 2 * S), n.reshape(-1)):
+        assert len(set(lst[:cnt].tolist())) == int(cnt)
+    y1, bh, x1, bw = _roi_axes(_t(ROIS), O, 1.0, aligned)
+    narrow = (bh if axis == "y" else bw) < 1.0
+    assert bool((n[narrow] <= S + 1).all())
+    assert tuple(n.shape) == (2, 6, O)
+    assert int(n[0, 4].sum()) == 0  # the ROI wholly outside the map
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("O", [4, 7])
+def test_separable_sum_matches_pallas_and_plain(rng, O, aligned):
+    """The staged kernel's order of summation (separable, over the merged
+    lists) against the JAX package's TPU kernel in interpret mode and the
+    plain version, f32, within 1e-5 of the output's scale."""
+    B, H, W, C = 2, 12, 14, 8
+    fmap = rng.rand(B, H, W, C).astype(np.float32)
+    got = _roi_align_separable(_t(fmap), _t(ROIS), O, aligned=aligned).numpy()
+    pallas = np.asarray(roi_align_pallas(
+        jnp.asarray(fmap), jnp.asarray(ROIS), O, aligned=aligned,
+        roi_chunk=2, channel_block=8, interpret=True,
+    ))
+    plain = _roi_align_plain(_t(fmap), _t(ROIS), O, aligned=aligned).numpy()
+    scale = np.abs(plain).max()
+    assert got.shape == pallas.shape == (B, 6, O, O, C)
+    assert np.abs(got - pallas).max() <= 1e-5 * scale
+    assert np.abs(got - plain).max() <= 1e-5 * scale
+
+
+def test_separable_sum_scale_and_bf16(rng):
+    """spatial_scale 1/16 and sampling ratio 2 at out_size 7, as the model
+    calls it; a bf16 map gives a bf16 result within 2 bf16 ulp of the f32
+    sum on the same bf16 inputs."""
+    B, H, W, C = 1, 8, 8, 16
+    fmap = rng.rand(B, H, W, C).astype(np.float32)
+    rois = (rng.rand(B, 5, 4).astype(np.float32) * 60).reshape(B, 5, 4)
+    rois[..., 2:] = rois[..., :2] + 30
+    got = _roi_align_separable(_t(fmap), _t(rois), 7, spatial_scale=1 / 16)
+    pallas = np.asarray(roi_align_pallas(
+        jnp.asarray(fmap), jnp.asarray(rois), 7, spatial_scale=1 / 16,
+        roi_chunk=4, channel_block=16, interpret=True,
+    ))
+    scale = np.abs(pallas).max()
+    assert np.abs(got.numpy() - pallas).max() <= 1e-5 * scale
+    f16 = _t(fmap).to(torch.bfloat16)
+    got16 = _roi_align_separable(f16, _t(rois), 7, spatial_scale=1 / 16)
+    assert got16.dtype == torch.bfloat16
+    ref = _roi_align_plain(f16.float(), _t(rois), 7, spatial_scale=1 / 16)
+    bound = 2 * 2.0 ** -8 * float(ref.abs().max())
+    assert float((got16.float() - ref).abs().max()) <= bound
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("O", [7, 14])
+def test_roi_axes_divide_as_ieee(rng, O, aligned):
+    """The plain versions' bin sizes are the ROI's side divided by O with
+    one IEEE rounding, as the kernels' ``__fdiv_rn`` computes them (the
+    forward on the CPU launches nothing)."""
+    rois = _t((rng.rand(2, 50, 4) * 480).astype(np.float32))
+    y1, bh, x1, bw = _roi_axes(rois, O, 1 / 16, aligned)
+    off = 0.5 if aligned else 0.0
+    for lo, hi, got in ((1, 3, bh), (0, 2, bw)):
+        side = (rois[..., hi] * (1 / 16) - off) - (rois[..., lo] * (1 / 16) - off)
+        if not aligned:
+            side = side.clamp(min=1.0)
+        want = (side.double() / O).float()
+        assert torch.equal(got, want)
+    before = (roi_align_cuda.launches, roi_align_cuda.launches_direct)
+    fmap = _t(rng.rand(2, 30, 30, 8).astype(np.float32))
+    got = _roi_align_forward(fmap, rois, O, 1 / 16, 2, aligned)
+    assert torch.equal(got, _roi_align_plain(fmap, rois, O, 1 / 16, 2, aligned))
+    assert (roi_align_cuda.launches, roi_align_cuda.launches_direct) == before
 
 
 def _jax_vjp(fmap, rois, cot, out_size, aligned, roi_chunk, **kw):
