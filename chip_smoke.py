@@ -8,8 +8,9 @@ and holds each against its plain PyTorch version: RoIAlign forward (K1,
 its staged kernel and, for maps too large to stage, its direct kernel)
 and backward (K1-bwd), and the greedy-NMS keep mask (K2), on edge cases
 and at the shapes of the main paths; K1's staged kernel is timed beside
-the direct one at every main-path call. Then it drives both paths through
-the kernels with launch counters:
+the direct one, and K2's walk beside its earlier bitmask kernel (whose two
+launches are also timed apart), at every main-path call. Then it drives
+both paths through the kernels with launch counters:
 
   * episodic inference, ``FGN.test_forward`` (R50-C4, N3K3, 480 px, batch
     8, bf16, seeded random weights), compared as a whole against its
@@ -19,8 +20,9 @@ the kernels with launch counters:
     training twin at b2 through the kernels and through the plain versions.
 
 With ``--profile`` it also prints where the device time of one flagship
-forward and of one train step goes (torch.profiler), and K1's staged
-kernel at other channel tiles and ROI groups than its rules pick.
+forward and of one train step goes (torch.profiler), K1's staged kernel
+at other channel tiles and ROI groups than its rules pick, and K2's walk
+at every cluster size.
 
 Prints its measurements on earlier lines; the line before the last is one
 JSON object of the kernels, the last line is
@@ -286,12 +288,94 @@ def rpn_like_boxes(gen, B, M, extent):
     return torch.cat([ctr - wh / 2, ctr + wh / 2], dim=-1)
 
 
+def k2_bitmask(boxes, alive, thr, parts=3, bufs=None):
+    """K2's earlier design, the bitmask kernel (an all-pairs bitmask in
+    device memory, then one serial walk per image), on greedy_alive_cuda's
+    arguments, through its C entry point: to compare and time it beside the
+    walk, so no launch counter moves. parts: 1 the bitmask pass alone, 2 the
+    serial walk alone (on the bitmask already in ``bufs``), 3 both. bufs:
+    (areas, scratch, keep), made as its wrapper made them when not given."""
+    import torch
+
+    from fgn_torch.ops import _build
+    from fgn_torch.ops.boxes import box_area
+
+    B, Mp = alive.shape
+    if bufs is None:
+        bufs = (box_area(boxes).contiguous(),
+                torch.empty((B, Mp, -(-Mp // 64)), dtype=torch.int64,
+                            device=boxes.device),
+                torch.empty((B, Mp), dtype=torch.bool, device=boxes.device))
+    areas, scratch, keep = bufs
+    lib = _build.load("nms")
+    rc = lib.fgn_nms_keep_bitmask(
+        boxes.data_ptr(), areas.data_ptr(), alive.data_ptr(),
+        scratch.data_ptr(), keep.data_ptr(), B, Mp, float(thr), parts,
+        torch.cuda.current_stream(boxes.device).cuda_stream)
+    _build.check(lib, "fgn_nms_error_string", rc, "nms bitmask kernel")
+    return keep
+
+
+def k2_landed(*a, **k):
+    """greedy_alive_cuda(*a, **k) → (its result, the K2 design whose counter
+    it moved: "staged" or "unstaged")."""
+    from fgn_torch.ops.nms_cuda import greedy_alive_cuda as gac
+
+    before = (gac.launches, gac.launches_unstaged)
+    out = gac(*a, **k)
+    moved = (gac.launches - before[0], gac.launches_unstaged - before[1])
+    check(moved in ((1, 0), (0, 1)), f"K2 launches moved by {moved}")
+    return out, "staged" if moved == (1, 0) else "unstaged"
+
+
+# Chains of three boxes, each overlapping the next at IoU 2/3 and the third
+# at 3/7 (threshold 0.5): the first suppresses the second, which therefore
+# does not suppress the third. Rows within each 256: inside a chunk of 32,
+# into the next chunk, two and four chunks ahead.
+K2_CHAINS = ((30, 31, 32), (60, 70, 100), (95, 130, 170), (200, 201, 240))
+
+
+def k2_case(gen, kind, B, Mp):
+    """(boxes (B, Mp, 4), alive (B, Mp)) on the CPU for K2's edge cases."""
+    import torch
+
+    i = torch.arange(Mp, dtype=torch.float32)
+    alive = torch.ones((B, Mp), dtype=torch.bool)
+    if kind == "random":
+        boxes = rpn_like_boxes(gen, B, Mp, 480.0 * max(1, Mp // 4096))
+        alive = torch.rand((B, Mp), generator=gen) > 0.05
+    elif kind in ("chains", "disjoint"):  # far apart but for the chains
+        x, y = (i % 64) * 100, (i // 64) * 100
+        boxes = torch.stack([x, y, x + 10, y + 10], -1).repeat(B, 1, 1)
+        for blk in range(0, Mp if kind == "chains" else 0, 256):
+            for trip in K2_CHAINS:
+                base = boxes[:, blk + trip[0]].clone()
+                for k, r in enumerate(trip):
+                    boxes[:, blk + r] = base + torch.tensor(
+                        [2.0 * k, 0.0, 2.0 * k, 0.0])
+    elif kind == "exact":  # pairs at IoU exactly 1/2 (1/4 every other)
+        x = (i // 2) * 10
+        boxes = torch.stack([x, 0 * x, x + 2, 0 * x + 1], -1)
+        boxes[1::2, 2] = x[1::2] + 1
+        boxes[1::4, 2] = x[1::4] + 0.5
+        boxes = boxes.repeat(B, 1, 1)
+    else:  # "zero_area": zero widths, zero heights, points
+        boxes = rpn_like_boxes(gen, B, Mp, 100.0)
+        boxes[:, ::3, 2] = boxes[:, ::3, 0]
+        boxes[:, 1::5, 3] = boxes[:, 1::5, 1]
+        boxes[:, 7::9] = 5.0
+        alive = torch.rand((B, Mp), generator=gen) > 0.1
+    return boxes.contiguous(), alive
+
+
 def phase_nms(dev, B=8, M=4096):
-    """K2 against its plain version: exact keep masks and NMS outputs."""
+    """K2 against its plain version: exact keep masks and NMS outputs; each
+    launch must land on the counter of the design ``_staged`` names. The
+    bitmask kernel is held to the same masks."""
     import torch
 
     from fgn_torch.ops.nms import _greedy_alive, batched_nms, nms_padded
-    from fgn_torch.ops.nms_cuda import greedy_alive_cuda
+    from fgn_torch.ops.nms_cuda import _staged, greedy_alive_cuda
 
     gen = torch.Generator().manual_seed(2)
 
@@ -338,14 +422,38 @@ def phase_nms(dev, B=8, M=4096):
     check(bool((one[3].sum(1) == 1).all()), "K2 identical boxes: one survivor")
     cases += 2
 
-    # keep-mask level at the RPN shape
-    boxes = rpn_like_boxes(gen, B, M, 480.0).to(dev)
-    alive = (torch.rand((B, M), generator=gen) > 0.05).to(dev)
-    keep = greedy_alive_cuda(boxes, alive, 0.7)
-    check(torch.equal(keep, _greedy_alive(boxes, alive, 0.7)),
-          "K2 keep mask differs at the RPN shape")
-    print(f"K2 nms: {cases} cases exact; keep mask (B={B}, Mp={M}, IoU 0.7) "
-          f"exact", flush=True)
+    # keep-mask level: the RPN shapes, the smallest Mp, chains across
+    # chunks, K = A, IoU exactly at the threshold, zero areas, and an Mp past
+    # shared memory (the unstaged design)
+    masks = []
+    for kind, b, mp, thr in (
+            ("random", B, M, 0.7), ("random", 4, 6144, 0.7),
+            ("random", B, 128, 0.7), ("random", B, 1024, 0.0),
+            ("chains", 4, 6144, 0.5), ("chains", B, 256, 0.5),
+            ("disjoint", 4, 6144, 0.7), ("disjoint", B, 1024, 0.5),
+            ("exact", 4, 1024, 0.5), ("exact", 4, 1024, 0.25),
+            ("zero_area", 4, 2048, 0.0), ("zero_area", 4, 2048, 0.5),
+            ("random", 2, 16384, 0.7)):
+        boxes, alive = (t.to(dev) for t in k2_case(gen, kind, b, mp))
+        keep, design = k2_landed(boxes, alive, thr)
+        want = "staged" if _staged(mp) else "unstaged"
+        check(design == want, f"K2 {kind} Mp={mp}: launch landed on {design}, "
+                              f"want {want}")
+        ref = _greedy_alive(boxes, alive, thr)
+        check(torch.equal(keep, ref), f"K2 keep mask differs: {kind} B={b} "
+                                      f"Mp={mp} IoU {thr}")
+        if mp <= 6144:
+            check(torch.equal(k2_bitmask(boxes, alive, thr), ref),
+                  f"K2 bitmask kernel differs: {kind} Mp={mp}")
+        if kind == "chains":  # the middle box of each chain, and only it
+            check(int((alive & ~keep).sum()) == b * len(K2_CHAINS) * mp // 256,
+                  f"K2 chains Mp={mp}: {int((alive & ~keep).sum())} dropped")
+        if kind == "disjoint":
+            check(torch.equal(keep, alive), f"K2 K = A Mp={mp}: boxes dropped")
+        masks.append(f"{kind} {b}x{mp} IoU {thr} {design} "
+                     f"{int(keep.sum())}/{int(alive.sum())} kept")
+    print(f"K2 nms: {cases} NMS cases exact; keep masks exact: "
+          + "; ".join(masks), flush=True)
 
 
 def flagship_cfg(**kw):
@@ -367,6 +475,7 @@ def zero_counts():
     roi_align_cuda.launches_direct = 0
     roi_align_backward_cuda.launches = 0
     greedy_alive_cuda.launches = 0
+    greedy_alive_cuda.launches_unstaged = 0
 
 
 def read_counts():
@@ -378,15 +487,18 @@ def read_counts():
     return {"roi_align": roi_align_cuda.launches,
             "roi_align_direct": roi_align_cuda.launches_direct,
             "roi_align_backward": roi_align_backward_cuda.launches,
-            "nms_keep": greedy_alive_cuda.launches}
+            "nms_keep": greedy_alive_cuda.launches,
+            "nms_keep_unstaged": greedy_alive_cuda.launches_unstaged}
 
 
-# K1's launches are its staged kernel's; no map of a main path takes the
-# direct kernel.
+# K1's launches are its staged kernel's and K2's its staged walk's: no map
+# of a main path takes K1's direct kernel, no Mp K2's unstaged walk.
 SERVE_KERNELS = {"roi_align": 3, "roi_align_direct": 0,
-                 "roi_align_backward": 0, "nms_keep": 2}
+                 "roi_align_backward": 0, "nms_keep": 2,
+                 "nms_keep_unstaged": 0}
 TRAIN_KERNELS = {"roi_align": 2, "roi_align_direct": 0,
-                 "roi_align_backward": 2, "nms_keep": 1}
+                 "roi_align_backward": 2, "nms_keep": 1,
+                 "nms_keep_unstaged": 0}
 
 
 def counted_forward(model, batch):
@@ -523,6 +635,38 @@ def k1_record(where, i, a, k, iters=20):
     )
 
 
+def k2_sweep(where, a):
+    """K2's walk at one call with every cluster size from 1 to 16 blocks an
+    image (``--profile`` only), through its C entry point (no counter
+    moves): time on the card (``device_ms``) for each, beside the clusters
+    of that size the card holds at once, to show where the rule's choice
+    stands."""
+    import torch
+
+    from fgn_torch.ops import _build
+    from fgn_torch.ops.nms_cuda import _cluster_size, _max_clusters
+
+    boxes, alive, thr = a[0], a[1], float(a[2])
+    B, Mp = alive.shape
+    keep = torch.empty_like(alive)
+    lib = _build.load("nms")
+    stream = torch.cuda.current_stream(boxes.device).cuda_stream
+
+    def walk(g):
+        rc = lib.fgn_nms_keep(boxes.data_ptr(), alive.data_ptr(),
+                              keep.data_ptr(), B, Mp, thr, g, 1, stream)
+        _build.check(lib, "fgn_nms_error_string", rc, "nms walk")
+
+    fits = {g: _max_clusters(boxes.device.index or 0, g, Mp, True)
+            for g in (16, 8, 4, 2, 1)}
+    res = [f"{g} {device_ms(lambda: walk(g)):.4f} ({fits[g]} fit)"
+           for g in (1, 2, 4, 8, 16)]
+    print(f"K2 walk sweep at {where} boxes {tuple(boxes.shape)}: ms on the "
+          f"card by blocks an image (clusters the card holds at once; the "
+          f"rule picks {_cluster_size(B, Mp, fits.get)}): " + ", ".join(res),
+          flush=True)
+
+
 def k1_sweep(a, k):
     """K1's staged kernel at one call with other channel tiles and ROI
     groups than its rules pick (``--profile`` only): time on the card
@@ -547,26 +691,52 @@ def k1_sweep(a, k):
           flush=True)
 
 
-def kernel_records(calls, iters=20):
-    """Each kernel on the inputs the main path gave it: held against its
-    plain version, timed beside its plain version and its bound. Returns
-    {kernel: record of its largest call}."""
+def kernel_records(calls, iters=20, where="main-path", names=None):
+    """Each kernel (of ``names``, all when None) on the inputs the main path
+    gave it: held against its plain version, timed beside its plain version,
+    its earlier design and its bound. Returns {kernel: record of its largest
+    call}."""
     import torch
 
+    from fgn_torch.ops.boxes import box_area
     from fgn_torch.ops.nms import _greedy_alive
-    from fgn_torch.ops.nms_cuda import greedy_alive_cuda
+    from fgn_torch.ops.nms_cuda import (
+        _cluster_size, _max_clusters, greedy_alive_cuda,
+    )
 
     recs = {}
     for i, (name, a, k) in enumerate(calls):
+        if names is not None and name not in names:
+            continue
         if name == "roi_align":
-            rec = k1_record("main-path", i, a, k, iters)
+            rec = k1_record(where, i, a, k, iters)
         else:
             boxes, alive, thr = a[0], a[1], a[2]
-            got = greedy_alive_cuda(*a, **k)
+            got, design = k2_landed(*a, **k)
+            check(design == "staged", f"K2 {where} call {i} took the {design} "
+                                      f"walk")
             ref = _greedy_alive(*a, **k)
-            check(torch.equal(got, ref), f"K2 main-path call {i} differs")
+            check(torch.equal(got, ref), f"K2 {where} call {i} differs")
+            check(torch.equal(k2_bitmask(boxes, alive, thr), ref),
+                  f"K2 bitmask kernel, {where} call {i} differs")
             err = 0.0
-            ms = cuda_ms(lambda: greedy_alive_cuda(*a, **k), iters)
+            reps = 10
+
+            def run(fn):
+                return lambda: [fn(boxes, alive, thr) for _ in range(reps)]
+
+            # the walk and the bitmask kernel in turns: new, old, old, new
+            times = [cuda_ms(run(fn), iters) / reps for fn in (
+                greedy_alive_cuda, k2_bitmask, k2_bitmask, greedy_alive_cuda)]
+            ms, earlier_ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+            bufs = (box_area(boxes).contiguous(),
+                    torch.empty((*alive.shape, -(-alive.shape[1] // 64)),
+                                dtype=torch.int64, device=boxes.device),
+                    torch.empty_like(alive))
+            dev_ms, dev_old, dev_mask, dev_walk = (
+                device_ms(lambda: greedy_alive_cuda(boxes, alive, thr)),
+                *(device_ms(lambda p=p: k2_bitmask(boxes, alive, thr, p, bufs))
+                  for p in (3, 1, 2)))
             plain_ms = cuda_ms(lambda: _greedy_alive(*a, **k), 3, warmup=1)
             B, Mp = alive.shape
             # Least work these inputs need, per image with A alive and K
@@ -579,19 +749,26 @@ def kernel_records(calls, iters=20):
             nbytes = B * Mp * (16 + 1 + 1)
             ops = IOU_FLOPS * pairs
             size = B * Mp
+            fits = {g: _max_clusters(boxes.device.index or 0, g, Mp, True)
+                    for g in (16, 8, 4, 2)}
             desc = (f"boxes {tuple(boxes.shape)}, IoU {thr}, "
-                    f"{int(alive.sum())} alive, {int(got.sum())} kept")
+                    f"{int(alive.sum())} alive, {int(got.sum())} kept, "
+                    f"{_cluster_size(B, Mp, fits.get)} blocks an image (the "
+                    f"card holds {fits} clusters of 16/8/4/2)")
             t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / F32_FLOPS_S
             bound_ms = max(t_bytes, t_ops) * 1e3
-            print(f"{name} main-path call {i}: {desc}: err {err:.3g}; kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                  f"{bound_ms:.5f} ms "
+            print(f"{name} {where} call {i}: {desc}: err {err:.3g}; walk "
+                  f"{ms:.4f} ms ({times[0]:.4f}, {times[3]:.4f}; on the card "
+                  f"{dev_ms:.4f}), bitmask kernel {earlier_ms:.4f} ms "
+                  f"({times[1]:.4f}, {times[2]:.4f}; on the card {dev_old:.4f}: "
+                  f"bitmask pass {dev_mask:.4f}, serial walk {dev_walk:.4f}), "
+                  f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
                   f"({'bytes' if t_bytes >= t_ops else 'operations'})",
                   flush=True)
             rec = dict(
                 name=name, route="cuda", source="fgn_torch/csrc/nms.cu",
                 replaces="nms_pallas.py:157", max_abs_err=err, ms=ms,
-                earlier_ms=None, plain_ms=plain_ms, bound_ms=bound_ms,
+                earlier_ms=earlier_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 library_ms=None, _size=size,
             )
@@ -730,7 +907,7 @@ def phase_train(dev, gpu, B=12, warmup=2, iters=5, profile=False):
     Adam at make_lr_schedule(5e-3, steps_per_epoch=1000)) on the flagship
     at b12 bf16. Each timed step runs with the launch counters set to 0
     just before it and read just after. → (counts of one step, the K1
-    forward and the K1-bwd calls of one more step). With ``profile``, one
+    forward, K1-bwd and K2 calls of one more step). With ``profile``, one
     more step is profiled: its forward by stage, and the whole step by
     op."""
     import torch
@@ -794,8 +971,9 @@ def phase_train(dev, gpu, B=12, warmup=2, iters=5, profile=False):
           "gaps inside a part included): " + ", ".join(
               f"{k} {v:.3f} ms" for k, v in split.items()), flush=True)
 
-    calls, fwd_calls = [], []
+    calls, fwd_calls, nms_calls = [], [], []
     real, real_fwd = rac.roi_align_backward_cuda, fgn_mod.roi_align_cuda
+    real_nms = fgn_mod.greedy_alive_cuda
 
     def recorder(*a, **k):
         calls.append((a, k))
@@ -805,18 +983,23 @@ def phase_train(dev, gpu, B=12, warmup=2, iters=5, profile=False):
         fwd_calls.append(((fmap.detach(),) + a, k))
         return real_fwd(fmap, *a, **k)
 
+    def nms_recorder(*a, **k):
+        nms_calls.append(("nms_keep", a, k))
+        return real_nms(*a, **k)
+
     # the wrappers count their launches on the module's names, the
     # recorders while they stand in: this capture step is not counted
     recorder.launches = 0
     with mock.patch.object(rac, "roi_align_backward_cuda", recorder), \
-            mock.patch.object(fgn_mod, "roi_align_cuda", fwd_recorder):
+            mock.patch.object(fgn_mod, "roi_align_cuda", fwd_recorder), \
+            mock.patch.object(fgn_mod, "greedy_alive_cuda", nms_recorder):
         step(batch, gen)
     if profile:
         phase_breakdown(
             "train step", lambda: step(batch, gen),
             [(model, s) for s in TRAIN_STAGES])
     del model, opt, before, batch
-    return counts[0], fwd_calls, calls
+    return counts[0], fwd_calls, calls, nms_calls
 
 
 def step_split(step, model, opt, batch, gen, iters=3):
@@ -1025,8 +1208,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one flagship forward and one train "
-                         "step by stage and op, and sweep K1's channel "
-                         "tiles and ROI groups at its largest call")
+                         "step by stage and op, sweep K1's channel tiles and "
+                         "ROI groups at its largest call, and K2's blocks "
+                         "an image at its serving calls")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1086,6 +1270,9 @@ def main(argv=None):
 
         k1_sweep(*max(((a, k) for name, a, k in calls if name == "roi_align"),
                       key=lambda c: c[0][1].shape[1]))
+        for name, a, _ in calls:
+            if name == "nms_keep":
+                k2_sweep("flagship", a)
 
         phase_breakdown(
             "forward", lambda: model.test_forward(batch),
@@ -1094,16 +1281,26 @@ def main(argv=None):
     torch.cuda.empty_cache()
     phase_plain_twin(dev)
     torch.cuda.empty_cache()
-    phase_main_path(dev, gpu, B=4, H=800, W=1088, S=256, iters=5,
-                    tag="coco2voc", rpn_test_nms_pre=6144)
+    _, model, batch, calls = phase_main_path(
+        dev, gpu, B=4, H=800, W=1088, S=256, iters=5, tag="coco2voc",
+        rpn_test_nms_pre=6144)
+    del model, batch
+    # K2 at the longest walk (Mp = 6144); printed, the JSON keeps the
+    # flagship's largest call
+    kernel_records(calls, where="coco2voc", names=("nms_keep",))
+    if args.profile:
+        k2_sweep("coco2voc", next(a for name, a, _ in calls
+                                  if name == "nms_keep"))
+    del calls
     torch.cuda.empty_cache()
-    train_counts, fwd_calls, bwd_calls = phase_train(dev, gpu,
-                                                     profile=args.profile)
+    train_counts, fwd_calls, bwd_calls, nms_calls = phase_train(
+        dev, gpu, profile=args.profile)
     for i, (a, k) in enumerate(fwd_calls):
         k1_record("train-path", i, a, k)
+    kernel_records(nms_calls, where="train-path")
     recs["roi_align_backward"] = backward_record(bwd_calls)
     recs["roi_align_backward"]["launches"] = train_counts["roi_align_backward"]
-    del fwd_calls, bwd_calls
+    del fwd_calls, bwd_calls, nms_calls
     torch.cuda.empty_cache()
     phase_train_twin(dev)
     print(f"phases: {time.perf_counter() - t0:.1f} s", flush=True)

@@ -67,6 +67,52 @@ def _greedy_alive(boxes_s, alive, iou_threshold: float, block: int = 128):
     return alive
 
 
+_CHUNK = 32  # rows per greedy decision of the CUDA kernel: a warp's width
+
+
+def _greedy_alive_walk(boxes_s, alive, iou_threshold: float,
+                       chunk: int = _CHUNK):
+    """The CUDA kernel's walk (``csrc/nms.cu::nms_walk``) in torch, for the
+    tests: the same chunks, the same rows suppressing the same columns, the
+    same chunks skipped. Iteration t decides chunk t (candidates: alive, not
+    yet suppressed, and not suppressed by a kept row of chunk t-1; then the
+    greedy fixpoint inside the chunk), while the kept rows of chunk t-1
+    suppress the columns of chunks t+1 and later. Chunks after the last
+    alive row are never walked. Same arguments and result as
+    ``_greedy_alive``; any Mp."""
+    B, Mp = alive.shape
+    thr = iou_threshold
+    removed = ~alive
+    keep = torch.zeros_like(alive)
+    rows_alive = alive.any(0).nonzero()
+    n_end = -(-(int(rows_alive[-1]) + 1) // chunk) if len(rows_alive) else 0
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=alive.device).triu(1)
+    kprev = None  # kept rows of chunk t-1, (B, chunk)
+    for t in range(n_end):
+        lo, hi = t * chunk, min((t + 1) * chunk, Mp)
+        rows = boxes_s[:, lo:hi]
+        n = hi - lo
+        cand = ~removed[:, lo:hi]
+        if kprev is not None:  # table T: chunk t-1's rows against chunk t
+            prev = boxes_s[:, lo - chunk:lo]
+            cand &= ~((box_iou(prev, rows) > thr) & kprev[:, :, None]).any(1)
+        adj = (box_iou(rows, rows) > thr) & tri[:n, :n]  # table S, i < j
+        kept = cand
+        while True:
+            nxt = cand & ~(adj & kept[:, :, None]).any(1)
+            if torch.equal(nxt, kept):
+                break
+            kept = nxt
+        keep[:, lo:hi] = kept
+        if kprev is not None and hi < Mp:  # chunk t-1 suppresses t+1 on
+            prev = boxes_s[:, lo - chunk:lo]
+            hit = (box_iou(prev, boxes_s[:, hi:]) > thr) & kprev[:, :, None]
+            removed[:, hi:] |= hit.any(1)
+        kprev = kept
+    return keep
+
+
 def nms_padded(boxes, scores, valid, iou_threshold: float, max_out: int,
                block: int = 128, alive_fn=None):
     """Greedy NMS over the valid boxes of each image.

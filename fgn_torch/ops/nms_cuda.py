@@ -2,19 +2,70 @@
 
 Counterpart of the JAX package's ``ops/nms_pallas.py::greedy_alive_pallas``
 and the ``alive_fn`` that ``ops/nms.py::nms_padded`` takes.
-``greedy_alive_cuda`` launches ``csrc/nms.cu`` for CUDA tensors (a bitmask
-pass over the upper triangle, then one serial walk per image) and uses the
-blocked sweep ``ops/nms.py::_greedy_alive`` only for CPU tensors. Both give
-the same bits.
+``greedy_alive_cuda`` launches ``csrc/nms.cu``'s walk for CUDA tensors (one
+launch per call: a cluster of blocks per image walks its candidates in
+chunks of 32, testing only kept rows against later columns still alive)
+and uses the blocked sweep ``ops/nms.py::_greedy_alive`` only for CPU
+tensors. Both give the same bits; ``ops/nms.py::_greedy_alive_walk``
+repeats the kernel's order in torch, for the tests.
+
+The kernel holds the image's boxes and areas in shared memory where they
+fit (``_staged``); a larger Mp takes the same walk reading them from device
+memory, counted apart in ``greedy_alive_cuda.launches_unstaged``.
+``_cluster_size`` picks the blocks per image.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from fgn_torch.ops import _build
-from fgn_torch.ops.boxes import box_area
-from fgn_torch.ops.nms import _greedy_alive
+from fgn_torch.ops.nms import _CHUNK, _greedy_alive
+
+# The walk kernel's dynamic shared memory (csrc/nms.cu::kWalkSmemMax): the
+# SM's 227 KB less 1 KB for its static tables.
+_WALK_SMEM_MAX = 232_448 - 1024
+_MAX_CLUSTER = 16
+
+
+def _walk_smem(Mp: int, staged: bool) -> int:
+    """Dynamic shared memory of one walk block (``walk_smem_bytes``): per
+    chunk a 64-bit mailbox slot and a 32-bit word of removed bits (rounded
+    up to 16 bytes), and the image's boxes and areas, 20 bytes a candidate,
+    when staged."""
+    return -(-12 * -(-Mp // _CHUNK) // 16) * 16 + (20 * Mp if staged else 0)
+
+
+def _staged(Mp: int) -> bool:
+    """Whether the boxes and areas of an image of Mp candidates fit in a
+    block's shared memory (up to Mp = 11,357)."""
+    return _walk_smem(Mp, True) <= _WALK_SMEM_MAX
+
+
+def _cluster_size(B: int, Mp: int, fits) -> int:
+    """Blocks per image: the largest power of two up to ``_MAX_CLUSTER``
+    that leaves each block two chunks or more and lets the card run the B
+    clusters at once; ``fits(G)`` is the number of clusters of G blocks the
+    card can hold (``_max_clusters``). A cluster that must wait for another
+    to finish would double the walk's time."""
+    g = _MAX_CLUSTER
+    while g > 1 and (2 * g * _CHUNK > Mp or fits(g) < B):
+        g //= 2
+    return g
+
+
+@functools.lru_cache(maxsize=256)
+def _max_clusters(device: int, g: int, Mp: int, staged: bool) -> int:
+    """Clusters of g walk blocks the card can run at once (the CUDA
+    occupancy query), for an image of Mp candidates."""
+    lib = _build.load("nms")
+    with torch.cuda.device(device):
+        n = lib.fgn_nms_walk_clusters(g, Mp, int(staged))
+    if n < 0:
+        _build.check(lib, "fgn_nms_error_string", -n, "nms occupancy query")
+    return n
 
 
 def greedy_alive_cuda(boxes_s, alive, iou_threshold: float, block: int = 128):
@@ -40,22 +91,29 @@ def greedy_alive_cuda(boxes_s, alive, iou_threshold: float, block: int = 128):
     if Mp % block or boxes_s.data_ptr() % 16:
         raise ValueError(f"greedy_alive_cuda: Mp={Mp} must be a multiple of "
                          f"block={block}, boxes 16-byte aligned")
+    staged = _staged(Mp)
+    if _walk_smem(Mp, staged) > _WALK_SMEM_MAX or B > 65535:
+        raise ValueError(f"greedy_alive_cuda: B={B}, Mp={Mp} too large")
     keep = torch.empty((B, Mp), dtype=torch.bool, device=boxes_s.device)
     if B == 0 or Mp == 0:
         return keep
-    # Areas as the reference computes them: max(x2-x1,0) * max(y2-y1,0).
-    areas = box_area(boxes_s).contiguous()
-    nw = -(-Mp // 64)
-    scratch = torch.empty((B, Mp, nw), dtype=torch.int64, device=boxes_s.device)
+    dev = boxes_s.device.index
+    if dev is None:
+        dev = torch.cuda.current_device()
+    G = _cluster_size(B, Mp, lambda g: _max_clusters(dev, g, Mp, staged))
     lib = _build.load("nms")
     rc = lib.fgn_nms_keep(
-        boxes_s.data_ptr(), areas.data_ptr(), alive.data_ptr(),
-        scratch.data_ptr(), keep.data_ptr(), B, Mp, float(iou_threshold),
+        boxes_s.data_ptr(), alive.data_ptr(), keep.data_ptr(), B, Mp,
+        float(iou_threshold), G, int(staged),
         torch.cuda.current_stream(boxes_s.device).cuda_stream,
     )
     _build.check(lib, "fgn_nms_error_string", rc, "nms kernel")
-    greedy_alive_cuda.launches += 1
+    if staged:
+        greedy_alive_cuda.launches += 1
+    else:
+        greedy_alive_cuda.launches_unstaged += 1
     return keep
 
 
-greedy_alive_cuda.launches = 0
+greedy_alive_cuda.launches = 0  # boxes staged in shared memory
+greedy_alive_cuda.launches_unstaged = 0  # boxes read from device memory

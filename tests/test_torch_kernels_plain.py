@@ -18,6 +18,11 @@ package's own test holds its kernel to. The RoIAlign backward (the map's
 gradient) in f32 within 1e-5 × max|df| of the JAX package's VJP; with a
 bf16 map and cotangent within 2 bf16 ulp of max|df|. The NMS keep mask is
 exact.
+
+The NMS kernel's walk (``_greedy_alive_walk``: chunks of 32 rows, the kept
+rows of one chunk suppressing the later columns while the next chunk is
+decided, chunks after the last alive row skipped) and its wrapper's rules
+(``_staged``, ``_cluster_size``) are held here too.
 """
 
 import jax
@@ -30,8 +35,10 @@ from fgn_tpu.ops.nms import _greedy_alive as j_greedy_alive
 from fgn_tpu.ops.nms_pallas import greedy_alive_pallas
 from fgn_tpu.ops.roi_align import roi_align as j_roi_align
 from fgn_tpu.ops.roi_align_pallas import roi_align_pallas
-from fgn_torch.ops.nms import _greedy_alive, nms_padded
-from fgn_torch.ops.nms_cuda import greedy_alive_cuda
+from fgn_torch.ops.nms import _greedy_alive, _greedy_alive_walk, nms_padded
+from fgn_torch.ops.nms_cuda import (
+    _WALK_SMEM_MAX, _cluster_size, _staged, _walk_smem, greedy_alive_cuda,
+)
 from fgn_torch.ops.roi_align_cuda import (
     _SMEM_MAX, _SMEM_TWO_BLOCKS, _bin_lists, _channel_tile, _hat_weights,
     _list_bytes, _roi_align_forward, _roi_align_plain, _roi_align_plain_bwd,
@@ -427,3 +434,129 @@ def test_nms_wrapper_takes_plain_version_on_cpu():
                    alive_fn=_greedy_alive)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+# Chains of three boxes, each overlapping the next at IoU 2/3 and the third
+# at IoU 3/7: the first suppresses the second, which therefore does not
+# suppress the third (threshold 0.5). Rows within each 256, so that chains
+# sit inside a chunk of 32, cross into the next chunk, and reach two and
+# four chunks ahead.
+CHAINS = ((30, 31, 32), (60, 70, 100), (95, 130, 170), (200, 201, 240))
+
+
+def _nms_case(kind, Mp, B=2, seed=0):
+    """Score-sorted (B, Mp, 4) f32 XYXY boxes and (B, Mp) alive flags."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(Mp, dtype=np.float32)
+    alive = np.ones((B, Mp), bool)
+    if kind == "random":  # RPN-like on a 480 px image, a few dead
+        ctr = rng.uniform(0, 480, (B, Mp, 2))
+        wh = rng.uniform(4, 196, (B, Mp, 2))
+        boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1)
+        alive = rng.uniform(size=(B, Mp)) > 0.05
+    elif kind in ("chains", "disjoint"):  # far apart: no box overlaps another
+        x, y = (i % 64) * 100, (i // 64) * 100
+        boxes = np.tile(np.stack([x, y, x + 10, y + 10], -1), (B, 1, 1))
+        for blk in range(0, Mp if kind == "chains" else 0, 256):
+            for trip in CHAINS:
+                base = boxes[:, blk + trip[0]].copy()
+                for k, r in enumerate(trip):
+                    boxes[:, blk + r] = base + [2.0 * k, 0, 2.0 * k, 0]
+    elif kind == "exact":  # pairs at IoU exactly 1/2 (and 1/4 every other)
+        x = (i // 2) * 10
+        boxes = np.stack([x, 0 * x, x + 2, 0 * x + 1], -1)
+        boxes[1::2, 2] = x[1::2] + 1
+        boxes[1::4, 2] = x[1::4] + 0.5
+        boxes = np.tile(boxes, (B, 1, 1))
+    elif kind == "zero_area":  # zero widths, zero heights and points
+        ctr = rng.uniform(0, 100, (B, Mp, 2))
+        wh = rng.uniform(4, 40, (B, Mp, 2))
+        boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1)
+        boxes[:, ::3, 2] = boxes[:, ::3, 0]
+        boxes[:, 1::5, 3] = boxes[:, 1::5, 1]
+        boxes[:, 7::9] = 5.0
+        alive = rng.uniform(size=(B, Mp)) > 0.1
+    else:  # "none": nothing alive
+        boxes = rng.uniform(0, 100, (B, Mp, 4))
+        alive[:] = False
+    return boxes.astype(np.float32), alive
+
+
+@pytest.mark.parametrize("kind,mp,thr", [
+    ("random", 128, 0.7), ("random", 384, 0.5), ("random", 1024, 0.7),
+    ("random", 1024, 0.3), ("chains", 256, 0.5), ("chains", 512, 0.5),
+    ("exact", 256, 0.5), ("exact", 256, 0.25), ("zero_area", 512, 0.0),
+    ("zero_area", 512, 0.5), ("disjoint", 1024, 0.5), ("none", 256, 0.5),
+])
+def test_walk_order_matches_pallas_and_sweeps(kind, mp, thr):
+    """The kernel's order of decisions and suppressions gives the greedy
+    keep mask bit for bit: against the JAX package's TPU kernel (interpret
+    mode) and blocked sweep, and the port's sweep."""
+    boxes, alive = _nms_case(kind, mp)
+    got = _greedy_alive_walk(_t(boxes), _t(alive), thr).numpy()
+    assert np.array_equal(got, _greedy_alive(_t(boxes), _t(alive), thr).numpy())
+    for b in range(boxes.shape[0]):
+        pallas = np.asarray(greedy_alive_pallas(
+            jnp.asarray(boxes[b]), jnp.asarray(alive[b]), thr, interpret=True))
+        sweep = np.asarray(j_greedy_alive(
+            jnp.asarray(boxes[b]), jnp.asarray(alive[b]), thr, 128))
+        assert np.array_equal(got[b], pallas)
+        assert np.array_equal(got[b], sweep)
+    want_dropped = {"chains": len(CHAINS) * mp // 256, "disjoint": 0,
+                    "exact": mp // 4 if thr < 0.5 else 0}
+    if kind in want_dropped:  # the second box of each chain; exact pairs
+        assert int((alive & ~got).sum(1).max()) == want_dropped[kind]
+    assert not (got & ~alive).any()
+
+
+def test_walk_ragged_last_chunk():
+    """Mp not a multiple of the 32-row chunk: the last chunk is partial."""
+    boxes, alive = _nms_case("random", 100, B=3, seed=1)
+    got = _greedy_alive_walk(_t(boxes), _t(alive), 0.5)
+    assert torch.equal(got, _greedy_alive(_t(boxes), _t(alive), 0.5, 100))
+    sweep = j_greedy_alive(jnp.asarray(boxes[0]), jnp.asarray(alive[0]), 0.5, 100)
+    assert np.array_equal(got[0].numpy(), np.asarray(sweep))
+
+
+@pytest.mark.parametrize("mp,staged", [
+    (128, True), (1024, True), (4096, True), (6144, True), (11_357, True),
+    (11_358, False), (16_384, False),
+])
+def test_walk_shared_memory_rule(mp, staged):
+    """A mailbox slot (8 bytes) and a word of removed bits (4) per chunk of
+    32, and the boxes and areas of an image (20 bytes a candidate), stay in
+    a block's shared memory up to Mp = 11,357, every Mp of the model
+    included; past that the walk reads the boxes from device memory."""
+    chunks = -(-mp // 32)
+    assert _walk_smem(mp, False) == -(-12 * chunks // 16) * 16 <= _WALK_SMEM_MAX
+    assert _walk_smem(mp, True) == _walk_smem(mp, False) + 20 * mp
+    assert _staged(mp) == staged
+    assert (_walk_smem(mp, True) <= _WALK_SMEM_MAX) == staged
+
+
+# Clusters of G walk blocks the card can run at once, as the occupancy query
+# reported them on an H100 (132 SMs) for the walk's 1024-thread blocks.
+H100_CLUSTERS = {16: 7, 8: 15, 4: 30, 2: 66}
+
+
+@pytest.mark.parametrize("B,mp,want", [
+    (8, 4096, 8), (8, 1024, 8),  # flagship RPN, detections: 7 of 16 fit
+    (12, 4096, 8),               # the train step's RPN
+    (4, 6144, 16), (4, 1024, 16),  # COCO2VOC
+    (2, 128, 2),                 # 4 chunks: two a block at most
+    (2, 32, 1), (40, 4096, 2), (200, 4096, 1),
+])
+def test_cluster_size_rule(B, mp, want):
+    """The largest cluster of 16 or fewer blocks that leaves each block two
+    chunks and lets the card hold all B clusters at once."""
+    g = _cluster_size(B, mp, H100_CLUSTERS.get)
+    assert g == want
+    assert g == 1 or (H100_CLUSTERS[g] >= B and 2 * 32 * g <= mp)
+
+
+def test_nms_wrapper_rejects_other_devices():
+    boxes = torch.zeros((1, 128, 4), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        greedy_alive_cuda(boxes, torch.zeros((1, 128), dtype=torch.bool,
+                                             device="meta"), 0.5)
+    assert greedy_alive_cuda.launches_unstaged == 0
