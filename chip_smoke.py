@@ -6,11 +6,13 @@
 Builds fgn_torch's CUDA kernels from ``fgn_torch/csrc`` with nvcc (sm_90a)
 and holds each against its plain PyTorch version: RoIAlign forward (K1,
 its staged kernel and, for maps too large to stage, its direct kernel)
-and backward (K1-bwd), and the greedy-NMS keep mask (K2), on edge cases
-and at the shapes of the main paths; K1's staged kernel is timed beside
-the direct one, and K2's walk beside its earlier bitmask kernel (whose two
-launches are also timed apart), at every main-path call. Then it drives
-both paths through the kernels with launch counters:
+and backward (K1-bwd, its staged kernel and, for maps whose accumulator
+does not fit, its atomics kernel), and the greedy-NMS keep mask (K2), on
+edge cases and at the shapes of the main paths; K1's staged kernel is
+timed beside the direct one, K1-bwd's beside the atomics one, and K2's
+walk beside its earlier bitmask kernel (whose two launches are also timed
+apart), at every main-path call. Then it drives both paths through the
+kernels with launch counters:
 
   * episodic inference, ``FGN.test_forward`` (R50-C4, N3K3, 480 px, batch
     8, bf16, seeded random weights), compared as a whole against its
@@ -21,8 +23,9 @@ both paths through the kernels with launch counters:
 
 With ``--profile`` it also prints where the device time of one flagship
 forward and of one train step goes (torch.profiler), K1's staged kernel
-at other channel tiles and ROI groups than its rules pick, and K2's walk
-at every cluster size.
+at other channel tiles and ROI groups than its rules pick, K1-bwd's staged
+kernel at other channel tiles and block sizes, and K2's walk at every
+cluster size.
 
 Prints its measurements on earlier lines; the line before the last is one
 JSON object of the kernels, the last line is
@@ -244,40 +247,96 @@ def phase_roi_align(dev, shapes, **over):
                   flush=True)
 
 
-def phase_roi_align_backward(dev, shapes):
+def k1bwd_atomic(g, rois, H, W, out_size=7, spatial_scale=1.0,
+                 sampling_ratio=2, aligned=True):
+    """K1-bwd's atomics kernel (the design the staged kernel replaced) on
+    roi_align_backward_cuda's arguments whatever the map: to compare and
+    time it beside the staged kernel, so no launch counter moves."""
+    from fgn_torch.ops.roi_align_cuda import _backward_atomic, _check
+
+    S = max(int(sampling_ratio), 1)
+    B, R, _, _, C = g.shape
+    _check(g.reshape(B, R * out_size, out_size, C), rois, out_size, S,
+           "k1bwd_atomic")
+    return _backward_atomic(g, rois, H, W, out_size, S, spatial_scale, aligned)
+
+
+def k1bwd_landed(*a, **k):
+    """roi_align_backward_cuda(*a, **k) → (its result, the K1-bwd design
+    whose counter it moved: "staged" or "atomic")."""
+    from fgn_torch.ops.roi_align_cuda import roi_align_backward_cuda as rbc
+
+    before = (rbc.launches, rbc.launches_atomic)
+    out = rbc(*a, **k)
+    moved = (rbc.launches - before[0], rbc.launches_atomic - before[1])
+    check(moved in ((1, 0), (0, 1)), f"K1-bwd launches moved by {moved}")
+    return out, "staged" if moved == (1, 0) else "atomic"
+
+
+def phase_roi_align_backward(dev, shapes, twin=("ragged",), **over):
     """K1-bwd against its plain version at the given (name, B, h, w, C, R)
     shapes, on ROIs inside, partly and wholly outside the map, and of zero
-    size. The kernel adds with f32 atomics in no fixed order, so it is held
-    to a tolerance relative to the gradient's largest magnitude."""
+    size, in f32 (within 1e-5 of the gradient's largest magnitude: the same
+    sums in another order) and bf16 (2 ulp): the kernel the wrapper picks,
+    whose launch must land on the counter of the kernel
+    ``_bwd_channel_tile`` names, and the atomics kernel. The staged kernel
+    sums every word in one fixed order, so two launches on the same inputs
+    must agree bit for bit; at the shapes named in ``twin`` it is also held
+    to ``_roi_align_bwd_ordered``, its order in torch. ``over`` replaces
+    roi_align_backward_cuda's keywords (out_size 7, spatial_scale 1/16)."""
     import torch
 
     from fgn_torch.ops.roi_align_cuda import (
-        _roi_align_plain_bwd, roi_align_backward_cuda,
+        _bwd_channel_tile, _roi_align_bwd_ordered, _roi_align_plain_bwd,
     )
 
     gen = torch.Generator().manual_seed(3)
+    kw = dict(dict(out_size=7, spatial_scale=1.0 / 16), **over)
+    O = kw["out_size"]
     for name, B, h, w, C, R in shapes:
         rois = random_rois(gen, B, R, 16 * max(h, w), dev)
-        g32 = torch.randn((B, R, 7, 7, C), generator=gen).to(dev)
-        kw = dict(out_size=7, spatial_scale=1.0 / 16)
-        with strict_f32():
-            got = roi_align_backward_cuda(g32, rois, h, w, **kw)
-            ref = _roi_align_plain_bwd(g32, rois, h, w, torch.float32, **kw)
-        scale = float(ref.abs().max().clamp(min=1e-30))
-        e32 = float((got - ref).abs().max())
-        check(e32 <= 1e-5 * scale, f"K1-bwd f32 {name}: {e32} > 1e-5 * {scale}")
+        g32 = torch.randn((B, R, O, O, C), generator=gen).to(dev)
         g16 = g32.to(torch.bfloat16)
-        got16 = roi_align_backward_cuda(g16, rois, h, w, **kw)
         with strict_f32():
+            ref = _roi_align_plain_bwd(g32, rois, h, w, torch.float32, **kw)
             ref16 = _roi_align_plain_bwd(g16.float(), rois, h, w,
                                          torch.float32, **kw)
-        check(got16.dtype == torch.bfloat16, "K1-bwd bf16 out dtype")
-        e16 = float((got16.float() - ref16).abs().max())
+        scale = float(ref.abs().max().clamp(min=1e-30))
         bound16 = 2 * 2.0 ** -8 * float(ref16.abs().max())
-        check(e16 <= bound16, f"K1-bwd bf16 {name}: {e16} > 2 ulp {bound16}")
-        print(f"K1-bwd roi_align_backward {name} B={B} map={h}x{w}x{C} R={R}: "
-              f"f32 err {e32:.3g} (scale {scale:.3g}); bf16 err {e16:.3g} <= "
-              f"{bound16:.3g}", flush=True)
+        line = []
+        for g, dt in ((g32, torch.float32), (g16, torch.bfloat16)):
+            got, design = k1bwd_landed(g, rois, h, w, **kw)
+            want = ("atomic" if _bwd_channel_tile(h, w, C, dt, R, O) is None
+                    else "staged")
+            check(design == want, f"K1-bwd {name} {dt}: launch landed on "
+                                  f"{design}, want {want}")
+            check(got.dtype == dt, f"K1-bwd {name}: out dtype {got.dtype}")
+            if design == "staged":
+                again = k1bwd_landed(g, rois, h, w, **kw)[0]
+                check(torch.equal(got, again),
+                      f"K1-bwd {name} {dt}: two launches differ")
+            old = k1bwd_atomic(g, rois, h, w, **kw)
+            for tag, out in ((design, got), ("atomic kernel", old)):
+                if dt == torch.float32:
+                    e = float((out - ref).abs().max())
+                    check(e <= 1e-5 * scale, f"K1-bwd {tag} f32 {name}: {e} > "
+                                             f"1e-5 * {scale}")
+                else:
+                    e = float((out.float() - ref16).abs().max())
+                    check(e <= bound16, f"K1-bwd {tag} bf16 {name}: {e} > 2 "
+                                        f"ulp {bound16}")
+                line.append(f"{tag} {str(dt)[6:]} err {e:.3g}")
+            if name in twin:
+                tw = _roi_align_bwd_ordered(g, rois, h, w, dt, **kw)
+                e = float((got.float() - tw.float()).abs().max())
+                check(e <= 1e-6 * scale, f"K1-bwd {name} {dt}: {e} from its "
+                                         f"order in torch")
+                line.append(f"vs its order in torch {e:.3g} "
+                            f"({int((got != tw).sum())} of {got.numel()} "
+                            f"words differ)")
+        print(f"K1-bwd roi_align_backward {name} B={B} map={h}x{w}x{C} R={R} "
+              f"{over}, (scale {scale:.3g}, bf16 bound {bound16:.3g}): "
+              + "; ".join(line), flush=True)
 
 
 def rpn_like_boxes(gen, B, M, extent):
@@ -474,6 +533,7 @@ def zero_counts():
     roi_align_cuda.launches = 0
     roi_align_cuda.launches_direct = 0
     roi_align_backward_cuda.launches = 0
+    roi_align_backward_cuda.launches_atomic = 0
     greedy_alive_cuda.launches = 0
     greedy_alive_cuda.launches_unstaged = 0
 
@@ -487,18 +547,21 @@ def read_counts():
     return {"roi_align": roi_align_cuda.launches,
             "roi_align_direct": roi_align_cuda.launches_direct,
             "roi_align_backward": roi_align_backward_cuda.launches,
+            "roi_align_backward_atomic":
+                roi_align_backward_cuda.launches_atomic,
             "nms_keep": greedy_alive_cuda.launches,
             "nms_keep_unstaged": greedy_alive_cuda.launches_unstaged}
 
 
-# K1's launches are its staged kernel's and K2's its staged walk's: no map
-# of a main path takes K1's direct kernel, no Mp K2's unstaged walk.
+# K1's, K1-bwd's and K2's launches are their staged kernels': no map of a
+# main path takes K1's direct kernel or K1-bwd's atomics kernel, no Mp K2's
+# unstaged walk.
 SERVE_KERNELS = {"roi_align": 3, "roi_align_direct": 0,
-                 "roi_align_backward": 0, "nms_keep": 2,
-                 "nms_keep_unstaged": 0}
+                 "roi_align_backward": 0, "roi_align_backward_atomic": 0,
+                 "nms_keep": 2, "nms_keep_unstaged": 0}
 TRAIN_KERNELS = {"roi_align": 2, "roi_align_direct": 0,
-                 "roi_align_backward": 2, "nms_keep": 1,
-                 "nms_keep_unstaged": 0}
+                 "roi_align_backward": 2, "roi_align_backward_atomic": 0,
+                 "nms_keep": 1, "nms_keep_unstaged": 0}
 
 
 def counted_forward(model, batch):
@@ -1033,10 +1096,40 @@ def step_split(step, model, opt, batch, gen, iters=3):
             for k, v in marks.items()}
 
 
+def k1bwd_sweep(a, k):
+    """K1-bwd's staged kernel at one call with other channel tiles and block
+    sizes than its rule picks (``--profile`` only): time on the card
+    (``device_ms``) for each tile that fits, to show where the rule's choice
+    stands."""
+    import fgn_torch.ops.roi_align_cuda as rac
+
+    g, rois, H, W = a[:4]
+    B, R, O, _, C = g.shape
+    esize = g.element_size()
+    rule = (rac._bwd_channel_tile(H, W, C, g.dtype, R, O), rac._bwd_threads(H))
+    res = []
+    for tile in (8, 16, 32, 64):
+        if rac._bwd_smem(H, W, tile, esize, R, O) > rac._SMEM_MAX:
+            continue
+        for threads in sorted({256, 512, 1024, rule[1]}):
+            with mock.patch.object(rac, "_bwd_channel_tile",
+                                   lambda *_a, **_k: tile), \
+                    mock.patch.object(rac, "_bwd_threads",
+                                      lambda *_a, **_k: threads):
+                ms = device_ms(lambda: rac.roi_align_backward_cuda(*a, **k))
+            res.append(f"{tile}/{threads} {ms:.4f}")
+    print(f"K1-bwd staged sweep at g {tuple(g.shape)} {str(g.dtype)[6:]} -> "
+          f"map {H}x{W}: ms on the card by channel tile/threads a block (the "
+          f"rule picks {rule[0]}/{rule[1]}): " + ", ".join(res), flush=True)
+
+
 def backward_record(calls, iters=20):
-    """K1-bwd at the train path's own inputs: held against its plain
-    version, timed beside it and its bound; the record of the largest
-    call."""
+    """K1-bwd at the train path's own inputs: the staged kernel (which the
+    call must take, the same bits at two launches) and the atomics kernel,
+    each held against the plain version; both timed in turns, staged,
+    atomics, atomics, staged, over runs of ``reps`` launches (CUDA events),
+    and on the card alone (``device_ms``), beside the plain version and the
+    bound. → the record of the largest call."""
     import torch
 
     from fgn_torch.ops.roi_align_cuda import (
@@ -1047,14 +1140,32 @@ def backward_record(calls, iters=20):
     for i, (a, k) in enumerate(calls):
         g, rois, H, W = a[:4]
         rest = a[4:]
-        got = roi_align_backward_cuda(*a, **k)
+        got, design = k1bwd_landed(*a, **k)
+        check(design == "staged", f"K1-bwd train-path call {i} took the "
+                                  f"{design} kernel")
+        check(torch.equal(got, roi_align_backward_cuda(*a, **k)),
+              f"K1-bwd train-path call {i}: two launches differ")
+        old = k1bwd_atomic(*a, **k)
         with strict_f32():
             ref = _roi_align_plain_bwd(g.float(), rois, H, W, torch.float32,
                                        *rest, **k)
         err = float((got.float() - ref).abs().max())
+        err_old = float((old.float() - ref).abs().max())
         bound = 2 * 2.0 ** -8 * float(ref.abs().max())
         check(err <= bound, f"K1-bwd train-path call {i}: {err} > 2 ulp {bound}")
-        ms = cuda_ms(lambda: roi_align_backward_cuda(*a, **k), iters)
+        check(err_old <= bound, f"K1-bwd atomics, train-path call {i}: "
+                                f"{err_old} > 2 ulp {bound}")
+        reps = 10
+
+        def run(fn):
+            return lambda: [fn(*a, **k) for _ in range(reps)]
+
+        times = [cuda_ms(run(fn), iters) / reps for fn in (
+            roi_align_backward_cuda, k1bwd_atomic, k1bwd_atomic,
+            roi_align_backward_cuda)]
+        ms, earlier_ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+        dev_ms, dev_old = (device_ms(lambda: fn(*a, **k))
+                           for fn in (roi_align_backward_cuda, k1bwd_atomic))
         plain_ms = cuda_ms(
             lambda: _roi_align_plain_bwd(g, rois, H, W, g.dtype, *rest, **k),
             3, warmup=1)
@@ -1066,7 +1177,7 @@ def backward_record(calls, iters=20):
         ops = 2 * 16 * g.numel()
         t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / F32_FLOPS_S
         bound_ms = max(t_bytes, t_ops) * 1e3
-        # The kernel's atomic adds on these inputs: per bin and channel, one
+        # The atomics kernel's adds on these inputs: per bin and channel, one
         # for each (row, column) pair with a nonzero weight.
         O, scale, S, aligned = rest
         wy, wx = _roi_weights(rois, H, W, O, scale, S, aligned)
@@ -1074,20 +1185,23 @@ def backward_record(calls, iters=20):
         nx = (wx != 0).sum(-1).double().sum(-1)
         atomics = float((ny * nx).sum()) * g.shape[-1]
         print(f"roi_align_backward train-path call {i}: g {tuple(g.shape)} "
-              f"{str(g.dtype)[6:]} -> map {H}x{W}: err {err:.3g}; kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
-              f"({'bytes' if t_bytes >= t_ops else 'operations'}); "
-              f"{atomics:.4g} atomic adds ({atomics / (g.numel() or 1):.2f} per "
-              f"element of g, {atomics / ms * 1e-6:.1f} G/s)", flush=True)
+              f"{str(g.dtype)[6:]} -> map {H}x{W}: err {err:.3g} (atomics "
+              f"{err_old:.3g}); staged {ms:.4f} ms ({times[0]:.4f}, "
+              f"{times[3]:.4f}; on the card {dev_ms:.4f}), atomics "
+              f"{earlier_ms:.4f} ms ({times[1]:.4f}, {times[2]:.4f}; on the "
+              f"card {dev_old:.4f}; {atomics:.4g} atomic adds, "
+              f"{atomics / (g.numel() or 1):.2f} per element of g), plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+              f"({'bytes' if t_bytes >= t_ops else 'operations'})", flush=True)
         if rec is None or g.numel() > rec["_size"]:
             rec = dict(
                 name="roi_align_backward", route="cuda",
                 source="fgn_torch/csrc/roi_align.cu",
                 replaces="roi_align_pallas.py:146",
-                max_abs_err=err, ms=ms, earlier_ms=None, plain_ms=plain_ms,
-                bound_ms=bound_ms,
+                max_abs_err=err, ms=ms, earlier_ms=earlier_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=None, _size=g.numel(),
+                library_ms=None, _size=g.numel(), _args=(a, k),
             )
     rec.pop("_size")
     return rec
@@ -1098,11 +1212,10 @@ def phase_train_twin(dev, B=2):
     and through the plain versions, same weights, same generator seed:
     identical proposals, losses within 1e-5 relative, K1's forward within
     1e-5 of its output's scale at each of its calls, and each parameter's
-    gradient within 1e-4 of its largest magnitude. Where the f32 gradient
-    of this network amplifies rounding (the two kernel runs, whose atomics
-    add in different orders, then differ too), the kernel-vs-plain
-    difference must stay within twice the largest kernel-vs-kernel
-    difference. The forward's rounding is amplified most: a change in the
+    gradient within 1e-4 of its largest magnitude. Where the two kernel
+    runs differ (an op of the step that sums in no fixed order; K1-bwd's
+    staged kernel sums in one), the kernel-vs-plain difference may reach
+    twice the largest kernel-vs-kernel difference. The forward's rounding is amplified most: a change in the
     last bits of RoIAlign's output flips the sign of a few inputs of the
     ReLUs after the relation head's GroupNorm and the mask head's convs
     (``twin_sensitivity.py`` shows where)."""
@@ -1209,8 +1322,9 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="also profile one flagship forward and one train "
                          "step by stage and op, sweep K1's channel tiles and "
-                         "ROI groups at its largest call, and K2's blocks "
-                         "an image at its serving calls")
+                         "ROI groups at its largest call, K1-bwd's channel "
+                         "tiles and block sizes at its largest call, and "
+                         "K2's blocks an image at its serving calls")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1259,7 +1373,16 @@ def main(argv=None):
     phase_roi_align_backward(dev, [
         ("supports", 108, 8, 8, 1024, 1),
         ("sampled", 12, 30, 30, 1024, 128),
+        ("coco2voc-train", 8, 50, 68, 1024, 128),
+        ("coco2voc-supports", 72, 16, 16, 1024, 1),
+        ("ragged", 3, 30, 30, 256, 13),  # R not a multiple of the chunk
+        ("large", 1, 128, 128, 128, 20),  # past shared memory: atomics
     ])
+    # the staged backward's generic instance (out_size, sampling ratio not
+    # compiled in), which no call of the model takes
+    phase_roi_align_backward(dev, [("generic", 2, 12, 14, 256, 20)],
+                             twin=("generic",), out_size=4, sampling_ratio=3,
+                             aligned=False)
     phase_nms(dev)
     counts, model, batch, calls = phase_main_path(dev, gpu)
     recs = kernel_records(calls)
@@ -1300,6 +1423,9 @@ def main(argv=None):
     kernel_records(nms_calls, where="train-path")
     recs["roi_align_backward"] = backward_record(bwd_calls)
     recs["roi_align_backward"]["launches"] = train_counts["roi_align_backward"]
+    if args.profile:
+        k1bwd_sweep(*recs["roi_align_backward"]["_args"])
+    recs["roi_align_backward"].pop("_args")
     del fwd_calls, bwd_calls, nms_calls
     torch.cuda.empty_cache()
     phase_train_twin(dev)

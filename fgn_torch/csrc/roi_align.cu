@@ -63,22 +63,58 @@
 // rounded exactly as the reference rounds them. Only the order of summation
 // differs.
 //
-// Backward (roi_align_bwd): replaces the f_bwd of the TPU kernel's custom
-// VJP (ops/roi_align_pallas.py:146-174 there), which computes
+// Backward: replaces the f_bwd of the TPU kernel's custom VJP
+// (ops/roi_align_pallas.py:146-174 there), which computes
 // df[b,h,w,c] = sum_r sum_i sum_j Wy[b,r,i,h] g[b,r,i,j,c] Wx[b,r,j,w]
-// as two XLA einsums in f32 and casts to the map's dtype. Here every bin's
-// gradient is scattered to the corners the forward read, with the same
-// sample geometry (point_geometry), by float32 atomicAdd into a zeroed
-// (B, H, W, C) buffer, then cast to the map's dtype. The order of the adds
-// varies from run to run, so the result is held to a relative tolerance.
-// Bound: bytes (read g, write df). At the training step's sampled-ROI call
-// (b12, R=128, 30x30x1024 bf16) that is 154 MB of g and 22 MB of df, about
-// 53 us; but the kernel issues up to 1.2e9 atomic adds (at most 16 per bin
-// and channel, fewer where the corners of a bin's sample points share a row
-// or column: bin_lists merges those) onto a 30x30 map, and the atomics
-// through L2 are its cost.
-// Later work: accumulate each ROI's footprint (or a channel tile of it) in
-// shared memory and add it to device memory once.
+// as two XLA einsums in f32 and casts to the map's dtype. No gradient flows
+// to the ROIs. Bound: bytes (read g, write df). At the training step's
+// sampled-ROI call (b12, R=128, 30x30x1024 bf16) that is 154 MB of g and
+// 22 MB of df, about 53 us.
+//
+// Backward, staged design (roi_align_bwd_staged, the one the model's calls
+// take): the forward's staging, reversed. One block per (channel tile,
+// image), grid (C / Ct, B), owns df[b, :, :, c0:c0+Ct] outright, so no
+// other block adds to it: no global atomics and no zeroed buffer. It keeps
+// an f32 (H, W, Ct) accumulator in shared memory and walks the image's
+// ROIs kRoiChunk at a time, in increasing order. For each chunk it copies
+// the chunk's g slice (ROIs x O x O x Ct, in g's dtype) into shared memory
+// with cp.async, 16 bytes a thread, one chunk ahead (two buffers: the next
+// chunk's copy is in flight while this one is summed); builds each ROI's
+// dense (O, H) row weights and (O, W) column weights from sample_point,
+// adding the corners that fall on one row in the order merge_corner adds
+// them, so the weights are the forward's merged lists exactly; and, for
+// each ROI and each map row and column, the range of bins with a nonzero
+// weight there, and the ROI's footprint (the rows and columns where a
+// range is not empty). Then warp w owns map rows w, w + warps, ... and is
+// the only writer of their words: for each owned row h, each ROI of the
+// chunk whose footprint holds h, each column x of the footprint, it adds
+//   sum_i wy_i[h] / S^2 * (sum_j wx_j[x] * g[i, j])   (i, j in h's and x's
+// bin ranges) with fmaf, in increasing ROI, i and j. A warp's lanes hold
+// the channels of 32 * kCL / Ct neighbouring positions (kCL channels each,
+// 8 lanes a position up to Ct = 32), so all its lanes follow one row and
+// one ROI. With O = 7 compiled in, the j sum is unrolled over all O bins
+// so that its loads go out together, zero weights outside the range adding
+// nothing (looping over the range instead was slower at all but the
+// largest ROIs, PERF.md). Every word is summed in one fixed order, so the result is
+// the same from run to run and whatever the tile or block size
+// (ops/roi_align_cuda.py::_roi_align_bwd_ordered repeats it in torch).
+// After the last chunk the block writes its slice once, rounded to the
+// map's dtype, as 16-byte stores: one launch a call. The wrapper picks Ct
+// (ops/roi_align_cuda.py::_bwd_channel_tile: the widest tile whose
+// accumulator, staging and weights fit in one block's shared memory) and a
+// warp a map row (_bwd_threads). The walk is latency-bound: each term is
+// a shared-memory load feeding a chain of multiply-adds, and a chunk's
+// barrier waits for its busiest row.
+//
+// Backward, atomics design (roi_align_bwd, the first port of it): for maps
+// whose accumulator does not fit at Ct = 8 (or whose C no tile divides, or
+// whose data is not 16-byte aligned); the wrapper counts its launches apart.
+// One block per (channel tile, ROI, image); every bin's gradient is
+// scattered to the corners the forward read, with the same sample geometry
+// (point_geometry), by float32 atomicAdd into a zeroed (B, H, W, C) buffer,
+// then cast to the map's dtype: three launches, up to 16 atomic adds per
+// bin and channel (fewer where bin_lists merges corners on one row or
+// column), in an order that varies from run to run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -94,6 +130,7 @@ constexpr int kMaxPts = 64;    // max out_size * sampling_ratio per axis
 constexpr int kStagedThreads = 224;
 constexpr int kRoiChunk = 8;        // ROIs whose bin lists a block holds
 constexpr int kSmemMax = 232448;    // dynamic shared memory a block may use
+constexpr int kBwdMaxThreads = 1024;  // staged backward: threads a block, at most
 constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float2 load2(const float* p) {
@@ -163,11 +200,21 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
                : "memory");
 }
 
-// Waits for this thread's cp.async copies; a __syncthreads() after it
-// makes every thread's copies visible to the block.
-__device__ __forceinline__ void cp_async_wait_all() {
+__device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Waits until at most kPending of this thread's committed groups of cp.async
+// copies are still in flight; a __syncthreads() after it makes every
+// thread's finished copies visible to the block.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  cp_async_commit();
+  cp_async_wait<0>();
 }
 
 // Sample geometry of one ROI, computed once per block into shared memory:
@@ -545,6 +592,289 @@ __global__ void cast_f32_bf16(const float* __restrict__ in,
   }
 }
 
+// Bytes of the staged backward's dynamic shared memory: the f32 (H, W, Ct)
+// accumulator; one buffer of a chunk's g slice, two when there is more than
+// one chunk; each chunk ROI's (O, H + W) dense weights, its H + W bin ranges
+// and its footprint (4 ints).
+__host__ __device__ constexpr long long bwd_staged_bytes(int H, int W, int Ct,
+                                                         int esize, int R,
+                                                         int O) {
+  return (long long)H * W * Ct * 4 +
+         (long long)(R < kRoiChunk ? R : kRoiChunk) *
+             ((R > kRoiChunk ? 2 : 1) * O * O * Ct * esize +
+              (O + 1) * (H + W) * 4 + 16);
+}
+
+// kCL consecutive channels of T as loaded from shared memory (Raw, one
+// load), and as floats.
+template <typename T, int kCL>
+struct Lane;
+
+template <>
+struct Lane<float, 1> {
+  using Raw = float;
+  __device__ __forceinline__ static float get(Raw r, int) { return r; }
+};
+template <>
+struct Lane<float, 2> {
+  using Raw = float2;
+  __device__ __forceinline__ static float get(Raw r, int c) {
+    return c == 0 ? r.x : r.y;
+  }
+};
+template <>
+struct Lane<float, 4> {
+  using Raw = float4;
+  __device__ __forceinline__ static float get(Raw r, int c) {
+    return c == 0 ? r.x : c == 1 ? r.y : c == 2 ? r.z : r.w;
+  }
+};
+// a bf16 is the upper half of the f32 of the same value
+template <>
+struct Lane<__nv_bfloat16, 1> {
+  using Raw = unsigned short;
+  __device__ __forceinline__ static float get(Raw r, int) {
+    return __uint_as_float((unsigned)r << 16);
+  }
+};
+template <>
+struct Lane<__nv_bfloat16, 2> {
+  using Raw = unsigned;
+  __device__ __forceinline__ static float get(Raw r, int c) {
+    return __uint_as_float(c == 0 ? r << 16 : r & 0xffff0000u);
+  }
+};
+template <>
+struct Lane<__nv_bfloat16, 4> {
+  using Raw = uint2;
+  __device__ __forceinline__ static float get(Raw r, int c) {
+    const unsigned w = c < 2 ? r.x : r.y;
+    return __uint_as_float((c & 1) ? w & 0xffff0000u : w << 16);
+  }
+};
+
+template <typename T, int kCL>
+__device__ __forceinline__ typename Lane<T, kCL>::Raw load_raw(const T* p) {
+  return *reinterpret_cast<const typename Lane<T, kCL>::Raw*>(p);
+}
+
+// The staged backward (see the note at the top). Grid (C / Ct, B),
+// blockDim.x threads (a multiple of 32, at most kBwdMaxThreads). Each lane
+// holds kCL channels: Ct / kCL lanes cover a map position's channel tile,
+// and a warp covers 32 * kCL / Ct neighbouring positions of one map row.
+// Warp w owns the map rows w, w + warps, ... Dynamic shared memory: the
+// f32 (H, W, Ct) accumulator; nbuf buffers of one chunk's g slice, (ROI,
+// bin, Ct) in g's dtype; the chunk ROIs' dense weights, per ROI O rows of H
+// then O rows of W floats; per ROI and map row then column the range
+// [lo, hi) of bins with a nonzero weight there, packed lo | hi << 16 (0 when
+// empty); per ROI its footprint, the rows [y0, y1) and columns [x0, x1)
+// where some range is not empty. kO, kS > 0 fix out_size and the sampling
+// ratio at compile time; 0 takes O_, S_.
+template <typename T, int kO, int kS, int kCL>
+__global__ void __launch_bounds__(kBwdMaxThreads)
+roi_align_bwd_staged(const T* __restrict__ dout, const float* __restrict__ rois,
+                     T* __restrict__ dmap, int H, int W, int C, int R, int O_,
+                     int S_, float scale, int aligned, int Ct, int vshift) {
+  constexpr int kN = Vec16<T>::kN;  // channels per 16-byte vector
+  const int O = kO > 0 ? kO : O_;
+  const int S = kS > 0 ? kS : S_;
+  const int V = 1 << vshift;  // 16-byte vectors per (bin or position): Ct / kN
+  const int HW = H * W;
+  const int HpW = H + W;
+  const int nt = blockDim.x;
+  const int b = blockIdx.y;
+  const int c0 = blockIdx.x * Ct;
+  const int q_max = min(kRoiChunk, R);
+  const int nbuf = R > kRoiChunk ? 2 : 1;
+  const int per_roi = O * O * Ct;  // elements of one ROI's staged g slice
+
+  const int lanes = Ct / kCL;  // lanes per map position
+  const int lane = threadIdx.x & 31;
+  const int px = lane / lanes;  // this lane's column in its warp's step
+  const int step = 32 / lanes;  // columns a warp covers at once
+  const int cl = (lane - px * lanes) * kCL;  // its first channel in the tile
+  const int warp = threadIdx.x >> 5;
+  const int warps = nt >> 5;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* acc = reinterpret_cast<float*>(smem);
+  T* stage = reinterpret_cast<T*>(smem + (size_t)HW * Ct * 4);
+  float* dw = reinterpret_cast<float*>(stage + (size_t)nbuf * q_max * per_roi);
+  int* ranges = reinterpret_cast<int*>(dw + q_max * O * HpW);
+  int* foot = ranges + q_max * HpW;
+
+  const T* gb = dout + (size_t)b * R * O * O * C + c0;
+  // The g slice of the chunk from ROI r0 into buffer buf: vector v of
+  // (ROI, bin) u of the chunk from g[b, r0 + u / O^2, bin, c0 + v * kN].
+  auto stage_chunk = [&](int r0, int buf) {
+    const int nr = min(kRoiChunk, R - r0);
+    unsigned char* dst =
+        reinterpret_cast<unsigned char*>(stage + (size_t)buf * q_max * per_roi);
+    const T* src = gb + (size_t)r0 * O * O * C;
+    for (int k = threadIdx.x; k < (nr * O * O) << vshift; k += nt) {
+      cp_async16(dst + (size_t)k * 16,
+                 src + (size_t)(k >> vshift) * C + (k & (V - 1)) * kN);
+    }
+    cp_async_commit();
+  };
+
+  // 1 / S^2 is a power of two when S is, and then folds exactly into the
+  // row weights.
+  const float inv =
+      kS > 0 ? 1.0f / (kS * kS) : __fdiv_rn(1.0f, (float)(S * S));
+  const int nchunks = (R + kRoiChunk - 1) / kRoiChunk;
+  stage_chunk(0, 0);
+  for (int k = threadIdx.x; k < HW * Ct / 4; k += nt) {
+    reinterpret_cast<float4*>(acc)[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  for (int ch = 0; ch < nchunks; ++ch) {
+    const int r0 = ch * kRoiChunk;
+    const int nr = min(kRoiChunk, R - r0);
+    const bool last = ch + 1 == nchunks;
+    if (!last) stage_chunk(r0 + kRoiChunk, (ch + 1) & 1);
+
+    for (int k = threadIdx.x; k < nr * O * HpW; k += nt) dw[k] = 0.0f;
+    for (int k = threadIdx.x; k < nr * 4; k += nt) {
+      foot[k] = (k & 1) ? 0 : ((k & 2) ? W : H);  // empty: lo = size, hi = 0
+    }
+    __syncthreads();
+    // Each (ROI, axis, bin) of the chunk: its corners' weights, dense.
+    for (int t = threadIdx.x; t < nr * 2 * O; t += nt) {
+      const int q = t / (2 * O);
+      const int axis = (t - q * 2 * O) / O;
+      const int i = t - q * 2 * O - axis * O;
+      const float* roi = rois + ((size_t)b * R + r0 + q) * 4;
+      float* row = dw + q * O * HpW + (axis == 0 ? i * H : O * H + i * W);
+      for (int k = i * S; k < (i + 1) * S; ++k) {
+        const Point p = sample_point(roi, axis, k, H, W, O, S, scale, aligned);
+        // merge_corner's sums: a zero weight dropped, a row already
+        // listed adding its weight there
+        if (p.wlo != 0.0f) row[p.lo] += p.wlo;
+        if (p.whi != 0.0f) row[p.hi] += p.whi;
+      }
+    }
+    __syncthreads();
+    // Each (ROI, map row or column): the bins with a nonzero weight there;
+    // and each ROI's footprint.
+    for (int t = threadIdx.x; t < nr * HpW; t += nt) {
+      const int q = t / HpW;
+      const int pos = t - q * HpW;
+      const bool is_row = pos < H;
+      const float* col =
+          dw + q * O * HpW + (is_row ? pos : O * H + (pos - H));
+      const int stride = is_row ? H : W;
+      int lo = O, hi = 0;
+      for (int i = 0; i < O; ++i) {
+        if (col[i * stride] != 0.0f) {
+          lo = min(lo, i);
+          hi = i + 1;
+        }
+      }
+      ranges[t] = lo < hi ? lo | (hi << 16) : 0;
+      if (lo < hi) {
+        const int idx = is_row ? pos : pos - H;
+        int* f = foot + q * 4 + (is_row ? 0 : 2);
+        atomicMin(f, idx);
+        atomicMax(f + 1, idx + 1);
+      }
+    }
+    if (last) {
+      cp_async_wait<0>();
+    } else {
+      cp_async_wait<1>();  // this chunk's slice has landed, the next one's not
+    }
+    __syncthreads();
+
+    // Each owned row, each ROI of the chunk whose footprint holds it, each
+    // column of the footprint (warp-uniform but for the columns); the lanes
+    // of a position its channels.
+    const T* gs = stage + (size_t)(ch & 1) * q_max * per_roi + cl;
+    for (int h = warp; h < H; h += warps) {
+      for (int q = 0; q < nr; ++q) {
+        const int* f = foot + q * 4;
+        if (h < f[0] || h >= f[1]) continue;  // the ROI misses this row
+        const int ry = ranges[q * HpW + h];
+        const int i0 = ry & 0xffff, i1 = ry >> 16;
+        if (i0 >= i1) continue;
+        const float* wy = dw + q * O * HpW + h;      // wy[i * H]
+        const float* wx = dw + q * O * HpW + O * H;  // wx[j * W + x]
+        const int* rx = ranges + q * HpW + H;
+        const T* gq = gs + (size_t)q * per_roi;
+        const int x_end = f[3];
+        for (int x = f[2] + px; x < x_end; x += step) {
+          const int r = rx[x];
+          const int j0 = r & 0xffff, j1 = r >> 16;
+          if (j0 >= j1) continue;
+          float* slot = acc + ((size_t)h * W + x) * Ct + cl;
+          float a[kCL];
+#pragma unroll
+          for (int c = 0; c < kCL; ++c) a[c] = slot[c];
+          // With O compiled in, the j sum is unrolled over all O bins so
+          // that a bin row's loads go out together; outside [j0, j1) the
+          // column weight is 0 and the term adds nothing, so the generic
+          // loop over [j0, j1) sums in the same order.
+          using L = Lane<T, kCL>;
+          if constexpr (kO > 0) {
+            float wv[kO];
+#pragma unroll
+            for (int j = 0; j < kO; ++j) wv[j] = wx[j * W + x];
+            for (int i = i0; i < i1; ++i) {
+              typename L::Raw gv[kO];
+#pragma unroll
+              for (int j = 0; j < kO; ++j) {
+                gv[j] = j >= j0 && j < j1
+                            ? load_raw<T, kCL>(gq + (i * kO + j) * Ct)
+                            : typename L::Raw{};
+              }
+              float col[kCL] = {};
+#pragma unroll
+              for (int j = 0; j < kO; ++j) {
+#pragma unroll
+                for (int c = 0; c < kCL; ++c) {
+                  col[c] = fmaf(wv[j], L::get(gv[j], c), col[c]);
+                }
+              }
+              const float wyi = wy[i * H] * inv;
+#pragma unroll
+              for (int c = 0; c < kCL; ++c) a[c] = fmaf(wyi, col[c], a[c]);
+            }
+          } else {
+            for (int i = i0; i < i1; ++i) {
+              float col[kCL] = {};
+              for (int j = j0; j < j1; ++j) {
+                const typename L::Raw g = load_raw<T, kCL>(gq + (i * O + j) * Ct);
+                const float w = wx[j * W + x];
+#pragma unroll
+                for (int c = 0; c < kCL; ++c) col[c] = fmaf(w, L::get(g, c), col[c]);
+              }
+              const float wyi = wy[i * H] * inv;
+#pragma unroll
+              for (int c = 0; c < kCL; ++c) a[c] = fmaf(wyi, col[c], a[c]);
+            }
+          }
+#pragma unroll
+          for (int c = 0; c < kCL; ++c) slot[c] = a[c];
+        }
+      }
+    }
+    __syncthreads();  // the next chunk's weights and slice overwrite these
+  }
+
+  // The block's slice of df, once, in the map's dtype: 16-byte stores,
+  // neighbouring threads on neighbouring vectors.
+  for (int it = threadIdx.x; it < HW << vshift; it += nt) {
+    const int pos = it >> vshift;
+    const int v = it & (V - 1);
+    float a[kN];
+#pragma unroll
+    for (int c = 0; c < kN; c += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(acc + (size_t)it * kN + c);
+      a[c] = x.x, a[c + 1] = x.y, a[c + 2] = x.z, a[c + 3] = x.w;
+    }
+    Vec16<T>::store(dmap + ((size_t)b * HW + pos) * C + c0 + v * kN, a);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -576,15 +906,11 @@ int fgn_roi_align_forward(const void* fmap, const void* rois, void* out, int B,
 
 namespace {
 
-template <typename T, int kO, int kS>
-cudaError_t launch_staged(const void* fmap, const void* rois, void* out, int B,
-                          int H, int W, int C, int R, int O, int S, float scale,
-                          int aligned, int Ct, int vshift, int per_block,
-                          int smem, cudaStream_t st) {
-  auto kernel = roi_align_fwd_staged<T, kO, kS>;
-  // The kernel's shared-memory limits, set once per device (a host call that
-  // would otherwise cost tens of microseconds a launch).
-  static bool ready[kMaxDevices] = {};
+// A kernel's shared-memory limits, set once per device and kernel (a host
+// call that would otherwise cost tens of microseconds a launch); ready is
+// the kernel's own per-device flags.
+template <typename K>
+cudaError_t allow_smem(K kernel, bool* ready) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -600,6 +926,18 @@ cudaError_t launch_staged(const void* fmap, const void* rois, void* out, int B,
     if (err != cudaSuccess) return err;
     ready[dev] = true;
   }
+  return cudaSuccess;
+}
+
+template <typename T, int kO, int kS>
+cudaError_t launch_staged(const void* fmap, const void* rois, void* out, int B,
+                          int H, int W, int C, int R, int O, int S, float scale,
+                          int aligned, int Ct, int vshift, int per_block,
+                          int smem, cudaStream_t st) {
+  auto kernel = roi_align_fwd_staged<T, kO, kS>;
+  static bool ready[kMaxDevices] = {};
+  const cudaError_t err = allow_smem(kernel, ready);
+  if (err != cudaSuccess) return err;
   const dim3 grid((R + per_block - 1) / per_block, C / Ct, B);
   kernel<<<grid, kStagedThreads, smem, st>>>(
       static_cast<const T*>(fmap), static_cast<const float*>(rois),
@@ -619,6 +957,60 @@ cudaError_t dispatch_staged(const void* fmap, const void* rois, void* out,
   }
   return launch_staged<T, 0, 0>(fmap, rois, out, B, H, W, C, R, O, S, scale,
                                 aligned, Ct, vshift, per_block, smem, st);
+}
+
+template <typename T, int kO, int kS, int kCL>
+cudaError_t launch_bwd_staged(const void* dout, const void* rois, void* dmap,
+                              int B, int H, int W, int C, int R, int O, int S,
+                              float scale, int aligned, int Ct, int vshift,
+                              int threads, int smem, cudaStream_t st) {
+  auto kernel = roi_align_bwd_staged<T, kO, kS, kCL>;
+  static bool ready[kMaxDevices] = {};
+  const cudaError_t err = allow_smem(kernel, ready);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(C / Ct, B), threads, smem, st>>>(
+      static_cast<const T*>(dout), static_cast<const float*>(rois),
+      static_cast<T*>(dmap), H, W, C, R, O, S, scale, aligned, Ct, vshift);
+  return cudaGetLastError();
+}
+
+// Channels a lane holds: Ct / 8 from 1 to 4, so that 8 lanes hold a
+// position's tile and a warp 4 positions up to Ct = 32; 16 and 32 lanes a
+// position at Ct = 64 and 128.
+template <typename T, int kO, int kS>
+cudaError_t dispatch_bwd_lanes(const void* dout, const void* rois, void* dmap,
+                               int B, int H, int W, int C, int R, int O, int S,
+                               float scale, int aligned, int Ct, int vshift,
+                               int threads, int smem, cudaStream_t st) {
+  if (Ct <= 8) {
+    return launch_bwd_staged<T, kO, kS, 1>(dout, rois, dmap, B, H, W, C, R, O,
+                                           S, scale, aligned, Ct, vshift,
+                                           threads, smem, st);
+  }
+  if (Ct == 16) {
+    return launch_bwd_staged<T, kO, kS, 2>(dout, rois, dmap, B, H, W, C, R, O,
+                                           S, scale, aligned, Ct, vshift,
+                                           threads, smem, st);
+  }
+  return launch_bwd_staged<T, kO, kS, 4>(dout, rois, dmap, B, H, W, C, R, O,
+                                         S, scale, aligned, Ct, vshift,
+                                         threads, smem, st);
+}
+
+template <typename T>
+cudaError_t dispatch_bwd_staged(const void* dout, const void* rois, void* dmap,
+                                int B, int H, int W, int C, int R, int O,
+                                int S, float scale, int aligned, int Ct,
+                                int vshift, int threads, int smem,
+                                cudaStream_t st) {
+  if (O == 7 && S == 2) {
+    return dispatch_bwd_lanes<T, 7, 2>(dout, rois, dmap, B, H, W, C, R, O, S,
+                                       scale, aligned, Ct, vshift, threads,
+                                       smem, st);
+  }
+  return dispatch_bwd_lanes<T, 0, 0>(dout, rois, dmap, B, H, W, C, R, O, S,
+                                     scale, aligned, Ct, vshift, threads, smem,
+                                     st);
 }
 
 }  // namespace
@@ -662,8 +1054,47 @@ int fgn_roi_align_forward_staged(const void* fmap, const void* rois,
   return (int)err;
 }
 
-// The map's gradient. dmap32 is a zeroed float32 (B, H, W, C) buffer the
-// kernel accumulates into; for dtype 1 (bfloat16) it is then cast into dmap,
+// The map's gradient, by the staged backward: Ct channels and `threads`
+// threads a block; the wrapper chooses both. dtype: 0 = float32,
+// 1 = bfloat16, for dout (B, R, O, O, C) and dmap (B, H, W, C) alike. Both
+// must be 16-byte aligned and the accumulator with the staging must fit in
+// a block's shared memory (bwd_staged_bytes). Returns the cudaError_t of the
+// launch.
+int fgn_roi_align_backward_staged(const void* dout, const void* rois,
+                                  void* dmap, int B, int H, int W, int C,
+                                  int R, int O, int S, float scale,
+                                  int aligned, int dtype, int Ct, int threads,
+                                  void* stream) {
+  const int esize = dtype == 0 ? 4 : 2;
+  if (O * S > kMaxPts || O <= 0 || S <= 0 || B <= 0 || B > 65535 || R <= 0 ||
+      H <= 0 || W <= 0 || C <= 0 || (dtype != 0 && dtype != 1) || Ct <= 0 ||
+      C % Ct || (Ct * esize) % 16 || Ct > 128 || (Ct & (Ct - 1)) ||
+      threads < 32 || threads % 32 ||
+      threads > kBwdMaxThreads || (reinterpret_cast<uintptr_t>(dout) & 15) ||
+      (reinterpret_cast<uintptr_t>(dmap) & 15)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int V = Ct * esize / 16;
+  int vshift = 0;
+  while ((1 << vshift) < V) ++vshift;
+  const long long smem = bwd_staged_bytes(H, W, Ct, esize, R, O);
+  if ((1 << vshift) != V || smem > kSmemMax) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      dtype == 0
+          ? dispatch_bwd_staged<float>(dout, rois, dmap, B, H, W, C, R, O, S,
+                                       scale, aligned, Ct, vshift, threads,
+                                       (int)smem, st)
+          : dispatch_bwd_staged<__nv_bfloat16>(dout, rois, dmap, B, H, W, C,
+                                               R, O, S, scale, aligned, Ct,
+                                               vshift, threads, (int)smem, st);
+  return (int)err;
+}
+
+// The map's gradient by the atomics kernel. dmap32 is a zeroed float32
+// (B, H, W, C) buffer the kernel accumulates into; for dtype 1 (bfloat16) it is then cast into dmap,
 // for dtype 0 dmap must be dmap32. Returns the cudaError_t of the launches.
 int fgn_roi_align_backward(const void* dout, const void* rois, void* dmap32,
                            void* dmap, int B, int H, int W, int C, int R,

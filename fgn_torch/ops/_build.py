@@ -37,6 +37,9 @@ _SIGNATURES = {
         "fgn_roi_align_forward_staged": (
             [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
             _I),
+        "fgn_roi_align_backward_staged": (
+            [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
+            _I),
         "fgn_roi_align_backward": (
             [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P], _I),
         "fgn_roi_align_error_string": ([_I], ctypes.c_char_p),

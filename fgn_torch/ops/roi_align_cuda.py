@@ -21,6 +21,15 @@ takes the direct kernel, which reads the corners from device memory; its
 launches are counted apart, in ``roi_align_cuda.launches_direct``.
 ``_bin_lists`` and ``_roi_align_separable`` repeat the staged kernel's
 merged corner lists and order of summation in torch, for the tests.
+
+The backward has two kernels too. The staged one gives each block one
+(channel tile, image): it sums the image's (H, W, Ct) slice of the map
+gradient in shared memory, each word by one thread in a fixed order, and
+writes it once; ``_bwd_channel_tile`` picks Ct, ``_roi_align_bwd_ordered``
+repeats its order in torch. A map whose accumulator does not fit at
+Ct = 8 (or whose data is not 16-byte aligned) takes the atomics kernel;
+its launches are counted apart, in
+``roi_align_backward_cuda.launches_atomic``.
 """
 
 from __future__ import annotations
@@ -61,6 +70,38 @@ def _channel_tile(H: int, W: int, C: int, dtype, out_size: int = 7,
     fits = [ct for ct, n in need.items() if n <= _SMEM_MAX]
     two = [ct for ct in fits if need[ct] <= _SMEM_TWO_BLOCKS]
     return two[0] if two else (fits[-1] if fits else None)
+
+
+def _bwd_smem(H: int, W: int, ct: int, esize: int, R: int,
+              out_size: int = 7) -> int:
+    """Shared memory of the staged backward (``bwd_staged_bytes``): the f32
+    (H, W, Ct) accumulator; one buffer of a chunk's g slice, two when there
+    is more than one chunk; each chunk ROI's (O, H + W) dense weights, its
+    H + W bin ranges and its footprint (4 ints)."""
+    q = min(_ROI_CHUNK, R)
+    nbuf = 2 if R > _ROI_CHUNK else 1
+    O = out_size
+    return H * W * ct * 4 + q * (nbuf * O * O * ct * esize
+                                 + (O + 1) * (H + W) * 4 + 16)
+
+
+def _bwd_channel_tile(H: int, W: int, C: int, dtype, R: int,
+                      out_size: int = 7):
+    """Channels per block of the staged backward kernel: the largest power
+    of two from 8 to 128 that divides C and keeps the accumulator, the
+    staging and the weights within ``_SMEM_MAX``, one block an SM (measured
+    on an H100, PERF.md: wider tiles beat more blocks). None when no tile
+    fits: the map then takes the atomics kernel."""
+    esize = torch.finfo(dtype).bits // 8
+    fits = [ct for ct in _TILES if C % ct == 0
+            and _bwd_smem(H, W, ct, esize, R, out_size) <= _SMEM_MAX]
+    return fits[0] if fits else None
+
+
+def _bwd_threads(H: int) -> int:
+    """Threads a block of the staged backward kernel: a warp for each map
+    row (a warp owns rows), up to 32 warps."""
+    return 32 * min(32, H)
 
 
 @functools.lru_cache(maxsize=None)
@@ -225,6 +266,40 @@ def _roi_align_plain_bwd(g, rois, H: int, W: int, dtype, out_size=7,
     return df.to(dtype)
 
 
+def _roi_align_bwd_ordered(g, rois, H: int, W: int, dtype, out_size=7,
+                           spatial_scale=1.0, sampling_ratio=2, aligned=True):
+    """The staged backward kernel's arithmetic in torch, for the tests: the
+    merged lists of ``_bin_lists`` made dense, and for each ROI in order
+    and each bin row i, df[h, w] += wy_i[h] / S² · Σ_j wx_j[w] · g[i, j],
+    in increasing i and j, each step one f32 rounding of the exact
+    a · b + c (the kernel's fmaf; here through f64, where the product is
+    exact). Loops over the ROIs and bins: toy sizes only."""
+    B, R, O, _, C = g.shape
+    S = max(int(sampling_ratio), 1)
+    y1, bh, x1, bw = _roi_axes(rois.to(torch.float32), O, spatial_scale,
+                               aligned)
+    dense = []
+    for start, size_, size in ((y1, bh, H), (x1, bw, W)):
+        idx, w, _ = _bin_lists(start, size_, size, O, S)  # (B, R, O, 2S)
+        dense.append(torch.zeros(idx.shape[:-1] + (size,), dtype=torch.float32,
+                                 device=g.device).scatter_add_(-1, idx, w))
+    wy = dense[0] * _div(torch.ones((), device=g.device), S * S)
+    wx = dense[1]  # (B, R, O, W)
+    g32 = g.to(torch.float32)
+
+    def fma(a, b, c):
+        return (a.double() * b.double() + c.double()).float()
+
+    df = torch.zeros((B, H, W, C), dtype=torch.float32, device=g.device)
+    for r in range(R):
+        for i in range(O):
+            col = torch.zeros((B, W, C), dtype=torch.float32, device=g.device)
+            for j in range(O):
+                col = fma(wx[:, r, j, :, None], g32[:, r, i, j, None, :], col)
+            df = fma(wy[:, r, i, :, None, None], col[:, None], df)
+    return df.to(dtype)
+
+
 def _check(fmap, rois, out_size, S, what):
     if fmap.dim() != 4 or rois.dim() != 3 or rois.shape[-1] != 4:
         raise ValueError(
@@ -287,12 +362,33 @@ def _roi_align_forward(fmap, rois, out_size, spatial_scale, sampling_ratio,
     return out
 
 
+def _backward_atomic(g, rois, H: int, W: int, out_size: int, S: int,
+                     spatial_scale: float, aligned: bool):
+    """The atomics backward kernel on checked CUDA arguments: a zeroed f32
+    buffer, the scatter, a cast to bf16. Counts nothing."""
+    B, R = g.shape[:2]
+    C = g.shape[-1]
+    acc = torch.zeros((B, H, W, C), dtype=torch.float32, device=g.device)
+    df = acc if g.dtype == torch.float32 else torch.empty_like(acc, dtype=g.dtype)
+    lib = _build.load("roi_align")
+    rc = lib.fgn_roi_align_backward(
+        g.data_ptr(), rois.data_ptr(), acc.data_ptr(), df.data_ptr(), B, H, W,
+        C, R, out_size, S, float(spatial_scale), int(bool(aligned)),
+        _DTYPES[g.dtype], torch.cuda.current_stream(g.device).cuda_stream,
+    )
+    _build.check(lib, "fgn_roi_align_error_string", rc,
+                 "roi_align atomics backward kernel")
+    return df
+
+
 def roi_align_backward_cuda(g, rois, H: int, W: int, out_size: int = 7,
                             spatial_scale: float = 1.0, sampling_ratio: int = 2,
                             aligned: bool = True):
     """The map's gradient: g (B, R, O, O, C), the gradient of the output, →
-    (B, H, W, C) in g's dtype (the map's dtype). The backward kernel for a
-    CUDA tensor, the plain version for a CPU tensor."""
+    (B, H, W, C) in g's dtype (the map's dtype). For a CUDA tensor the
+    staged backward kernel where ``_bwd_channel_tile`` finds a tile and g is
+    16-byte aligned, else the atomics kernel; the plain version for a CPU
+    tensor."""
     if g.device.type == "cpu":
         return _roi_align_plain_bwd(g, rois, H, W, g.dtype, out_size,
                                     spatial_scale, sampling_ratio, aligned)
@@ -306,15 +402,22 @@ def roi_align_backward_cuda(g, rois, H: int, W: int, out_size: int = 7,
                          f"(B,R,O,O,C) with O={out_size}, got {tuple(g.shape)}")
     _check(g.reshape(B, R * out_size, out_size, C), rois, out_size, S,
            "roi_align_backward_cuda")
-    acc = torch.zeros((B, H, W, C), dtype=torch.float32, device=g.device)
-    if acc.numel() == 0 or g.numel() == 0:
-        return acc.to(g.dtype)
-    df = acc if g.dtype == torch.float32 else torch.empty_like(acc, dtype=g.dtype)
+    if B * H * W * C == 0 or g.numel() == 0:
+        return torch.zeros((B, H, W, C), dtype=g.dtype, device=g.device)
+    tile = None
+    if g.data_ptr() % 16 == 0:
+        tile = _bwd_channel_tile(H, W, C, g.dtype, R, out_size)
+    if tile is None:
+        df = _backward_atomic(g, rois, H, W, out_size, S, spatial_scale,
+                              aligned)
+        roi_align_backward_cuda.launches_atomic += 1
+        return df
+    df = torch.empty((B, H, W, C), dtype=g.dtype, device=g.device)
     lib = _build.load("roi_align")
-    rc = lib.fgn_roi_align_backward(
-        g.data_ptr(), rois.data_ptr(), acc.data_ptr(), df.data_ptr(), B, H, W,
-        C, R, out_size, S, float(spatial_scale), int(bool(aligned)),
-        _DTYPES[g.dtype], torch.cuda.current_stream(g.device).cuda_stream,
+    rc = lib.fgn_roi_align_backward_staged(
+        g.data_ptr(), rois.data_ptr(), df.data_ptr(), B, H, W, C, R, out_size,
+        S, float(spatial_scale), int(bool(aligned)), _DTYPES[g.dtype], tile,
+        _bwd_threads(H), torch.cuda.current_stream(g.device).cuda_stream,
     )
     _build.check(lib, "fgn_roi_align_error_string", rc,
                  "roi_align backward kernel")
@@ -351,4 +454,5 @@ def roi_align_cuda(fmap, rois, out_size: int = 7, spatial_scale: float = 1.0,
 
 roi_align_cuda.launches = 0  # the staged forward kernel
 roi_align_cuda.launches_direct = 0  # the direct forward kernel
-roi_align_backward_cuda.launches = 0
+roi_align_backward_cuda.launches = 0  # the staged backward kernel
+roi_align_backward_cuda.launches_atomic = 0  # the atomics backward kernel
