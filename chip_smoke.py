@@ -11,15 +11,21 @@ does not fit, its atomics kernel), and the greedy-NMS keep mask (K2), on
 edge cases and at the shapes of the main paths; K1's staged kernel is
 timed beside the direct one, K1-bwd's beside the atomics one, and K2's
 walk beside its earlier bitmask kernel (whose two launches are also timed
-apart), at every main-path call. Then it drives both paths through the
-kernels with launch counters:
+apart), at every main-path call. Then it drives the three paths through
+the kernels with launch counters:
 
   * episodic inference, ``FGN.test_forward`` (R50-C4, N3K3, 480 px, batch
     8, bf16, seeded random weights), compared as a whole against its
     plain-version twin in f32, and the COCO2VOC geometry (800x1088, b4);
   * training, ``make_train_step`` (``FGN.train_forward``, backward, Adam):
     2 warm-up and 5 timed full-width steps at b12 bf16, and an f32
-    training twin at b2 through the kernels and through the plain versions.
+    training twin at b2 through the kernels and through the plain versions;
+  * episodic evaluation, ``Evaluator`` over 60 seeded episodes
+    (``EvalEpisodes``) at b8 bf16: three passes (stream and cache, cached,
+    ``run_fresh``) timed and split, K1 x3 and K2 x2 per batch, the native
+    RLE live, pass 2's metrics equal to pass 1's and its detections
+    bit-identical to a synchronized loop, and an f32 eval twin through the
+    plain versions. It prints whether the machine has cv2.
 
 With ``--profile`` it also prints where the device time of one flagship
 forward and of one train step goes (torch.profiler), K1's staged kernel
@@ -1317,6 +1323,320 @@ def phase_train_twin(dev, B=2):
           f"{noise:.3g}", flush=True)
 
 
+class EvalEpisodes:
+    """A seeded numpy episodic dataset with the interface of the JAX
+    package's ``FewShotISEG`` that the evaluator and its loader read:
+    ``len``, ``ds[i]`` → the sample dict of ``episodic.py:837-854``, the
+    normalization stats and the tag attributes. Episode i is drawn from its
+    own seed, so any subset or order gives the same episodes. Query sizes
+    cycle through ``sizes`` (the third, 466×350 by default, is not a
+    multiple of 4: its gt masks take the loader's numpy area resample);
+    each query holds 2-6 painted ellipses of 3 classes with
+    full-resolution masks; the N×K supports are S px crops of one painted
+    ellipse of their class each."""
+
+    n_ways, k_shots = 3, 3
+    mean = (123.675, 116.28, 103.53)
+    std = (58.395, 57.12, 57.375)
+    sampling_origin_ds, sampling_origin_ds_subset = "SYNTH", "val"
+    finetune, sampling_cats, sampling_scenario = "Ignore", "base_", "parents"
+    COLORS = ((220, 60, 60), (60, 220, 60), (60, 60, 220))
+    REAL_CATS = (11, 23, 37)
+
+    def __init__(self, n, seed=0, sizes=((480, 480), (480, 352), (466, 350)),
+                 S=128):
+        self.n, self.seed, self.sizes, self.S = n, seed, sizes, S
+
+    def __len__(self):
+        return self.n
+
+    @classmethod
+    def _paint(cls, rng, img, c, cy, cx, ry, rx):
+        """An ellipse of class c, with texture, into img → its bool mask."""
+        import numpy as np
+
+        h, w = img.shape[:2]
+        y, x = np.ogrid[:h, :w]
+        m = ((y - cy) / ry) ** 2 + ((x - cx) / rx) ** 2 <= 1.0
+        tex = rng.randint(-30, 31, (int(m.sum()), 3))
+        img[m] = np.clip(np.array(cls.COLORS[c]) + tex, 0, 255)
+        return m
+
+    def __getitem__(self, idx):
+        import numpy as np
+
+        rng = np.random.RandomState(self.seed * 100_003 + idx)
+        N, K, S = self.n_ways, self.k_shots, self.S
+        h, w = self.sizes[idx % len(self.sizes)]
+        img = rng.randint(0, 50, (h, w, 3)).astype(np.uint8)
+        g = rng.randint(2, 7)
+        cats = rng.randint(0, N, g)
+        boxes, masks = [], []
+        for c in cats:
+            ry, rx = rng.uniform(0.1, 0.35, 2) * (h, w)
+            cy, cx = rng.uniform(ry, h - ry), rng.uniform(rx, w - rx)
+            m = self._paint(rng, img, c, cy, cx, ry, rx)
+            masks.append(m)
+        for i, m in enumerate(masks):  # later instances occlude earlier
+            for later in masks[i + 1:]:
+                m &= ~later
+        # drop instances occluded (almost) whole; the last one never is
+        keep = [i for i, m in enumerate(masks) if m.sum() >= 64]
+        cats, masks = cats[keep], [masks[i] for i in keep]
+        for m in masks:
+            ys, xs = np.nonzero(m)
+            boxes.append([ys.min(), xs.min(), ys.max() + 1, xs.max() + 1])
+        spp_imgs = rng.randint(0, 50, (N * K, S, S, 3)).astype(np.uint8)
+        spp_masks = np.zeros((N * K, S, S), np.float32)
+        spp_boxes = np.zeros((N * K, 4), np.float32)
+        for i in range(N * K):
+            r = rng.uniform(0.2, 0.4, 2) * S
+            m = self._paint(rng, spp_imgs[i], i // K, S / 2, S / 2, *r)
+            spp_masks[i] = m
+            ys, xs = np.nonzero(m)
+            spp_boxes[i] = [ys.min(), xs.min(), ys.max() + 1, xs.max() + 1]
+        real = np.asarray(self.REAL_CATS, np.int64)
+        return {
+            "idx": idx,
+            "qry_child_idx": idx,
+            "qry_img": img,
+            "qry_bboxes": np.asarray(boxes, np.float32).reshape(-1, 4),
+            "qry_cat_ids": cats.astype(np.int64),
+            "qry_cat_ids_real": real[cats],
+            "qry_isegmaps": np.stack(masks).astype(np.uint8),
+            "spp_imgs": spp_imgs,
+            "spp_bboxes": spp_boxes,
+            "spp_isegmaps": spp_masks,
+            "cats_ids_to_sample_real": real,
+            "spp_insts_ids": np.arange(N * K, dtype=np.int64) + 1000 * idx,
+            "img_shape": np.asarray([h, w, 3], np.int64),
+        }
+
+
+class CountedStep:
+    """An eval step that records, per call, the kernel launches it made and
+    CUDA events around it (the step's span on the card's clock), and, when
+    ``keep`` is set, a host copy of its unpacked outputs."""
+
+    def __init__(self, step, keep=False):
+        self.step, self.keep = step, keep
+        self.reset()
+
+    def reset(self):
+        self.counts, self.events, self.outs = [], [], []
+
+    def __call__(self, batch):
+        import torch
+
+        from fgn_torch.train.train_step import unpack_eval_out
+
+        before = read_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.step(batch)
+        end.record()
+        self.events.append((start, end))
+        self.counts.append({k: v - before[k] for k, v in read_counts().items()})
+        if self.keep:
+            self.outs.append({k: v.cpu() for k, v in
+                              unpack_eval_out(dict(out)).items()})
+        return out
+
+    def device_s(self):
+        """Σ of the steps' spans on the card's clock, in seconds."""
+        return sum(s.elapsed_time(e) for s, e in self.events) / 1e3
+
+
+def read_results(ev):
+    """The per-episode results of the evaluator's last pass, from its
+    pickle chunks, in order."""
+    import os
+
+    from fgn_torch.utils.io import read_pkl
+
+    d = ev.results_dir()
+    return [r for fn in sorted(os.listdir(d))
+            for r in read_pkl(os.path.join(d, fn))]
+
+
+def eval_pass(ev, step, run, n_episodes, what):
+    """One eval pass with the launch counters set to 0 just before it and
+    read just after; every batch must launch K1 3 and K2 2 times through
+    their staged kernels. → (metrics, counts of the pass)."""
+    import torch
+
+    step.reset()
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    metrics = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    t = ev.last_times
+    n_b = t["batches"]
+    check(n_b == len(step.counts) == -(-n_episodes // ev.batch_size),
+          f"eval {what}: {n_b} batches, {len(step.counts)} steps")
+    for i, c in enumerate(step.counts):
+        check(c == SERVE_KERNELS, f"eval {what} batch {i}: launches {c}, "
+                                  f"want {SERVE_KERNELS}")
+    check(counts == {k: v * n_b for k, v in SERVE_KERNELS.items()},
+          f"eval {what}: launches {counts} over {n_b} batches")
+    for k, v in metrics.items():
+        check(0.0 <= v <= 1.0, f"eval {what}: {k} = {v}")
+    print(f"eval pass {what}: {n_episodes} episodes, {n_b} batches of "
+          f"{ev.batch_size} in {wall:.3f} s = {n_episodes / wall:.2f} "
+          f"episodes/s; device steps {step.device_s():.3f} s (CUDA events), "
+          f"fetch wait {t['fetch']:.3f} s, host paste+RLE {t['host']:.3f} s, "
+          f"FSISEGEval {t['eval']:.3f} s, loop {t['loop']:.3f} s; synchronized "
+          f"batches 1-3: step {t['sync_step']:.3f} s, fetch "
+          f"{t['sync_fetch']:.3f} s; launches {counts}; metrics "
+          f"{ {k.split('/')[1]: v for k, v in metrics.items()} }", flush=True)
+    return metrics, counts
+
+
+def phase_eval(dev, gpu, n=60, B=8, pad_hw=(480, 480), twin_n=16, **ds_kw):
+    """Episodic evaluation (``Evaluator.run``) of the flagship (bf16, seeded
+    weights) over ``n`` episodes of ``EvalEpisodes`` at batch B: three
+    passes (stream and cache, cached, ``run_fresh``), each timed and split,
+    with K1 ×3 and K2 ×2 per batch; pass 2's metrics equal pass 1's; pass
+    2's pickled detections equal, bit for bit, a plain loop of the same
+    step over the cached batches synchronized after each; then an f32 twin
+    over ``twin_n`` episodes (TF32 off) through the kernels and through the
+    plain versions. → the launch counts of pass 1."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fgn_torch.data import rle as RLE
+    from fgn_torch.data.batching import from_numpy, to_device
+    from fgn_torch.models.fgn import build_model
+    from fgn_torch.ops.boxes import xyxy_to_yxyx
+    from fgn_torch.train.evaluator import Evaluator
+    from fgn_torch.train.train_step import make_eval_step, unpack_eval_out_np
+
+    check(RLE.backend() == "native", f"RLE backend {RLE.backend()}, want "
+                                     f"native")
+    ds = EvalEpisodes(n, **ds_kw)
+    model = build_model(flagship_cfg(), dev, seed=0)
+    raw = make_eval_step(model)
+    step = CountedStep(raw)
+    with tempfile.TemporaryDirectory() as work:
+        ev = Evaluator(model, ds, batch_size=B, eval_step=step, work_dir=work,
+                       pad_hw=pad_hw, max_gt=30, n_plots=0)
+        m1, counts = eval_pass(ev, step, ev.run, n, "1 (stream and cache)")
+        m2, _ = eval_pass(ev, step, ev.run, n, "2 (cached)")
+        res2 = read_results(ev)
+        eval_pass(ev, step, ev.run_fresh, n, "3 (run_fresh)")
+    check(m2 == m1, f"eval: pass 2 metrics {m2} differ from pass 1's {m1}")
+    check(ev._episode_cache[-1][1].n_real == n - B * (len(ev._episode_cache) - 1),
+          "eval: last batch n_real")
+
+    # the double-buffered pass against a synchronized loop, bit for bit
+    i = n_dt = 0
+    for batch, meta in ev._episode_cache:
+        out = raw(to_device(from_numpy(**batch._asdict()), dev))
+        torch.cuda.synchronize()
+        out = unpack_eval_out_np({k: v.cpu().numpy() for k, v in out.items()})
+        for b in range(meta.n_real):
+            r, valid = res2[i], out["dt_valid"][b]
+            h, w = (int(v) for v in batch.img_hw[b])
+            boxes = out["dt_boxes"][b][valid]
+            probs = 1.0 / (1.0 + np.exp(-out["dt_mask_logits"][b][valid]))
+            same = (r["idx"] == int(meta.idx[b])
+                    and np.array_equal(r["dt_scores"], out["dt_scores"][b][valid])
+                    and np.array_equal(r["dt_bboxes"], xyxy_to_yxyx(boxes))
+                    and np.array_equal(r["dt_cat_ids"], out["dt_cats"][b][valid])
+                    and r["dt_isegmaps_rle"] == RLE.paste_encode_results(
+                        probs, boxes, h, w, ev.mask_thr))
+            check(same, f"eval: episode {i} of pass 2 differs from the "
+                        f"synchronized loop")
+            n_dt += int(valid.sum())
+            i += 1
+    check(i == n == len(res2), f"eval: {i} episodes checked, {len(res2)} "
+                               f"pickled")
+    print(f"eval: pass 2's {n} episodes ({n_dt} detections) bit-identical to "
+          f"a synchronized loop over the cached batches; pass 2 metrics equal "
+          f"pass 1's; on {gpu}", flush=True)
+    del model, ev, raw, step
+    torch.cuda.empty_cache()
+    phase_eval_twin(dev, twin_n, B, pad_hw, ds_kw)
+    return counts
+
+
+def phase_eval_twin(dev, n, B, pad_hw, ds_kw):
+    """The evaluator at f32 (TF32 off) over n episodes through the kernels
+    and through the plain versions, same weights: per episode the same
+    valid detections and categories; boxes, scores and mask logits within
+    ``phase_plain_twin``'s tolerances; the four metrics within 1e-4."""
+    import tempfile
+
+    import fgn_torch.models.fgn as fgn_mod
+    from fgn_torch.ops.nms import _greedy_alive
+    from fgn_torch.ops.roi_align_cuda import _roi_align_plain
+    from fgn_torch.train.evaluator import Evaluator
+    from fgn_torch.train.train_step import make_eval_step
+
+    model = fgn_mod.build_model(flagship_cfg(compute_dtype="float32"), dev,
+                                seed=0)
+    ds = EvalEpisodes(n, **ds_kw)
+    runs = []
+    for plain in (False, True):
+        step = CountedStep(make_eval_step(model), keep=True)
+        with tempfile.TemporaryDirectory() as work, strict_f32(), \
+                contextlib.ExitStack() as st:
+            if plain:
+                st.enter_context(mock.patch.object(
+                    fgn_mod, "roi_align_cuda", _roi_align_plain))
+                st.enter_context(mock.patch.object(
+                    fgn_mod, "greedy_alive_cuda", _greedy_alive))
+            ev = Evaluator(model, ds, batch_size=B, eval_step=step,
+                           work_dir=work, pad_hw=pad_hw, max_gt=30, n_plots=0)
+            zero_counts()
+            metrics = ev.run()
+            counts = read_counts()
+            runs.append((metrics, read_results(ev), step.outs, counts))
+    (mk, rk, ok, ck), (mp, rp, op, cp) = runs
+    n_b = -(-n // B)
+    check(ck == {k: v * n_b for k, v in SERVE_KERNELS.items()},
+          f"eval twin: kernel run launches {ck}")
+    check(cp == {k: 0 for k in SERVE_KERNELS},
+          f"eval twin: plain run launched {cp}")
+    n_dt = 0
+    for i, (a, b) in enumerate(zip(rk, rp)):
+        check(len(a["dt_scores"]) == len(b["dt_scores"])
+              and sorted(a["dt_cat_ids"].tolist())
+              == sorted(b["dt_cat_ids"].tolist()),
+              f"eval twin: episode {i}: valid detections or categories differ")
+        n_dt += len(a["dt_scores"])
+    mask_scale = max(float(o["dt_mask_logits"].abs().max()) for o in op)
+    for a, b in zip(ok, op):
+        match_detections(a, b, tol_box=1e-2, tol_score=1e-4,
+                         tol_mask=1e-3 * max(mask_scale, 1.0))
+    for k in mp:
+        check(abs(mk[k] - mp[k]) <= 1e-4,
+              f"eval twin: {k} {mk[k]} vs plain {mp[k]}")
+    print(f"eval twin f32, {n} episodes: {n_dt} detections match the plain "
+          f"versions' (boxes 1e-2 px, scores 1e-4, mask logits 1e-3 x "
+          f"{mask_scale:.3g}); metrics kernels "
+          f"{ {k.split('/')[1]: round(v, 6) for k, v in mk.items()} }, plain "
+          f"{ {k.split('/')[1]: round(v, 6) for k, v in mp.items()} }",
+          flush=True)
+
+
+def cv2_line():
+    """``cv2: <version>|absent``: whether this machine has OpenCV, which the
+    JAX package's episode engine needs."""
+    import importlib
+
+    try:
+        return f"cv2: {importlib.import_module('cv2').__version__}"
+    except ImportError:
+        return "cv2: absent"
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1429,6 +1749,11 @@ def main(argv=None):
     del fwd_calls, bwd_calls, nms_calls
     torch.cuda.empty_cache()
     phase_train_twin(dev)
+    torch.cuda.empty_cache()
+    eval_counts = phase_eval(dev, gpu)
+    for name in ("roi_align", "nms_keep"):  # this slice's path: eval pass 1
+        recs[name]["launches"] = eval_counts[name]
+    print(cv2_line(), flush=True)
     print(f"phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = []

@@ -6,10 +6,17 @@ Port of the JAX package's ``ops/boxes.py``. Boxes are XYXY; widths and heights a
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _DEFAULT_MEANS = (0.0, 0.0, 0.0, 0.0)
 _DEFAULT_STDS = (1.0, 1.0, 1.0, 1.0)
+
+
+def xyxy_to_yxyx(boxes: np.ndarray) -> np.ndarray:
+    """(…, 4) XYXY → YXYX on host arrays (the evaluator's results keep the
+    datasets' YXYX order)."""
+    return np.asarray(boxes)[..., (1, 0, 3, 2)]
 
 
 def box_area(boxes: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from fgn_torch.data.batching import EpisodeBatch
@@ -73,4 +74,19 @@ def unpack_eval_out(out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         "dt_cats": pack[..., 5].to(torch.int32),
         "dt_valid": pack[..., 6] > 0.5,
         "dt_mask_logits": out["dt_mask_logits"],
+    }
+
+
+def unpack_eval_out_np(out: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """``unpack_eval_out`` on host arrays: the evaluator copies the two
+    packed leaves to the host and unpacks them there."""
+    if "dt_pack" not in out:
+        return out
+    pack = np.asarray(out["dt_pack"])
+    return {
+        "dt_boxes": pack[..., :4],
+        "dt_scores": pack[..., 4],
+        "dt_cats": pack[..., 5].astype(np.int32),
+        "dt_valid": pack[..., 6] > 0.5,
+        "dt_mask_logits": np.asarray(out["dt_mask_logits"]),
     }
