@@ -20,12 +20,23 @@ the kernels with launch counters:
   * training, ``make_train_step`` (``FGN.train_forward``, backward, Adam):
     2 warm-up and 5 timed full-width steps at b12 bf16, and an f32
     training twin at b2 through the kernels and through the plain versions;
-  * episodic evaluation, ``Evaluator`` over 60 seeded episodes
-    (``EvalEpisodes``) at b8 bf16: three passes (stream and cache, cached,
-    ``run_fresh``) timed and split, K1 x3 and K2 x2 per batch, the native
-    RLE live, pass 2's metrics equal to pass 1's and its detections
-    bit-identical to a synchronized loop, and an f32 eval twin through the
-    plain versions. It prints whether the machine has cv2.
+  * the system as a user runs it, from ``configs/fgn_train_mnistiseg_n3k3.py``
+    (R50-C4, GN, deep stem, avg-down, N3K3, bf16): the episode engine held
+    stage by stage to the committed reference (``data/digests.py``: OpenCV
+    calls on fixed inputs, glyphs and the MNISTISEG split it generates here
+    held to their structure, databags, episodes, the collated batch), then
+    train steps at the config's batch 8 with its Adagrad schedule on the
+    train split's episodes through ``EpisodeLoader`` (2 warm-up and 5
+    timed, the same 5 batches again from host memory, 5 of a fresh epoch;
+    K1 x2, K1-bwd x2, K2 x1 per step; the wait for each batch and the
+    prefetch thread's episodes/s), and each kernel at one more step's calls;
+  * episodic evaluation, ``Evaluator`` over every episode of the config's
+    eval split at b8: three passes (stream and cache, cached, ``run_fresh``)
+    timed and split, K1 x3 and K2 x2 per batch, the native RLE live, one
+    render by ``visualize_result``, pass 2's metrics equal to pass 1's and
+    its detections bit-identical to a synchronized loop, each kernel at the
+    calls of the first batch, and an f32 eval twin over 16 frozen episodes
+    through the plain versions. It prints the machine's cv2 version.
 
 With ``--profile`` it also prints where the device time of one flagship
 forward and of one train step goes (torch.profiler), K1's staged kernel
@@ -34,7 +45,9 @@ kernel at other channel tiles and block sizes, and K2's walk at every
 cluster size.
 
 Prints its measurements on earlier lines; the line before the last is one
-JSON object of the kernels, the last line is
+JSON object of the kernels, each with every number from one path (its
+``path``: K1 and K2 from evaluation, K1-bwd from the engine's training);
+the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero. Without a CUDA device, or without the fgn_torch package
 beside it, it exits non-zero and prints no result.
@@ -44,10 +57,13 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -981,8 +997,6 @@ def phase_train(dev, gpu, B=12, warmup=2, iters=5, profile=False):
     op."""
     import torch
 
-    import fgn_torch.models.fgn as fgn_mod
-    import fgn_torch.ops.roi_align_cuda as rac
     from fgn_torch.data.batching import to_device, toy_batch
     from fgn_torch.models.fgn import build_model
     from fgn_torch.train.optim import build_optimizer, make_lr_schedule
@@ -1040,6 +1054,24 @@ def phase_train(dev, gpu, B=12, warmup=2, iters=5, profile=False):
           "gaps inside a part included): " + ", ".join(
               f"{k} {v:.3f} ms" for k, v in split.items()), flush=True)
 
+    fwd_calls, calls, nms_calls = capture_train_calls(step, batch, gen)
+    if profile:
+        phase_breakdown(
+            "train step", lambda: step(batch, gen),
+            [(model, s) for s in TRAIN_STAGES])
+    del model, opt, before, batch
+    return counts[0], fwd_calls, calls, nms_calls
+
+
+def capture_train_calls(step, batch, gen):
+    """The arguments of every kernel call of one more train step, in order:
+    (K1 forward [(args, kwargs)], K1-bwd [(args, kwargs)], K2 [("nms_keep",
+    args, kwargs)]). The kernels run as usual; the step is not counted (the
+    wrappers count their launches on the module's names, the recorders
+    while they stand in)."""
+    import fgn_torch.models.fgn as fgn_mod
+    import fgn_torch.ops.roi_align_cuda as rac
+
     calls, fwd_calls, nms_calls = [], [], []
     real, real_fwd = rac.roi_align_backward_cuda, fgn_mod.roi_align_cuda
     real_nms = fgn_mod.greedy_alive_cuda
@@ -1056,19 +1088,12 @@ def phase_train(dev, gpu, B=12, warmup=2, iters=5, profile=False):
         nms_calls.append(("nms_keep", a, k))
         return real_nms(*a, **k)
 
-    # the wrappers count their launches on the module's names, the
-    # recorders while they stand in: this capture step is not counted
     recorder.launches = 0
     with mock.patch.object(rac, "roi_align_backward_cuda", recorder), \
             mock.patch.object(fgn_mod, "roi_align_cuda", fwd_recorder), \
             mock.patch.object(fgn_mod, "greedy_alive_cuda", nms_recorder):
         step(batch, gen)
-    if profile:
-        phase_breakdown(
-            "train step", lambda: step(batch, gen),
-            [(model, s) for s in TRAIN_STAGES])
-    del model, opt, before, batch
-    return counts[0], fwd_calls, calls, nms_calls
+    return fwd_calls, calls, nms_calls
 
 
 def step_split(step, model, opt, batch, gen, iters=3):
@@ -1129,7 +1154,7 @@ def k1bwd_sweep(a, k):
           f"rule picks {rule[0]}/{rule[1]}): " + ", ".join(res), flush=True)
 
 
-def backward_record(calls, iters=20):
+def backward_record(calls, iters=20, where="train-path"):
     """K1-bwd at the train path's own inputs: the staged kernel (which the
     call must take, the same bits at two launches) and the atomics kernel,
     each held against the plain version; both timed in turns, staged,
@@ -1147,10 +1172,10 @@ def backward_record(calls, iters=20):
         g, rois, H, W = a[:4]
         rest = a[4:]
         got, design = k1bwd_landed(*a, **k)
-        check(design == "staged", f"K1-bwd train-path call {i} took the "
+        check(design == "staged", f"K1-bwd {where} call {i} took the "
                                   f"{design} kernel")
         check(torch.equal(got, roi_align_backward_cuda(*a, **k)),
-              f"K1-bwd train-path call {i}: two launches differ")
+              f"K1-bwd {where} call {i}: two launches differ")
         old = k1bwd_atomic(*a, **k)
         with strict_f32():
             ref = _roi_align_plain_bwd(g.float(), rois, H, W, torch.float32,
@@ -1158,8 +1183,8 @@ def backward_record(calls, iters=20):
         err = float((got.float() - ref).abs().max())
         err_old = float((old.float() - ref).abs().max())
         bound = 2 * 2.0 ** -8 * float(ref.abs().max())
-        check(err <= bound, f"K1-bwd train-path call {i}: {err} > 2 ulp {bound}")
-        check(err_old <= bound, f"K1-bwd atomics, train-path call {i}: "
+        check(err <= bound, f"K1-bwd {where} call {i}: {err} > 2 ulp {bound}")
+        check(err_old <= bound, f"K1-bwd atomics, {where} call {i}: "
                                 f"{err_old} > 2 ulp {bound}")
         reps = 10
 
@@ -1190,7 +1215,7 @@ def backward_record(calls, iters=20):
         ny = (wy != 0).sum(-1).double().sum(-1)  # (B, R): Σ_i rows of bin i
         nx = (wx != 0).sum(-1).double().sum(-1)
         atomics = float((ny * nx).sum()) * g.shape[-1]
-        print(f"roi_align_backward train-path call {i}: g {tuple(g.shape)} "
+        print(f"roi_align_backward {where} call {i}: g {tuple(g.shape)} "
               f"{str(g.dtype)[6:]} -> map {H}x{W}: err {err:.3g} (atomics "
               f"{err_old:.3g}); staged {ms:.4f} ms ({times[0]:.4f}, "
               f"{times[3]:.4f}; on the card {dev_ms:.4f}), atomics "
@@ -1323,94 +1348,192 @@ def phase_train_twin(dev, B=2):
           f"{noise:.3g}", flush=True)
 
 
-class EvalEpisodes:
-    """A seeded numpy episodic dataset with the interface of the JAX
-    package's ``FewShotISEG`` that the evaluator and its loader read:
-    ``len``, ``ds[i]`` → the sample dict of ``episodic.py:837-854``, the
-    normalization stats and the tag attributes. Episode i is drawn from its
-    own seed, so any subset or order gives the same episodes. Query sizes
-    cycle through ``sizes`` (the third, 466×350 by default, is not a
-    multiple of 4: its gt masks take the loader's numpy area resample);
-    each query holds 2-6 painted ellipses of 3 classes with
-    full-resolution masks; the N×K supports are S px crops of one painted
-    ellipse of their class each."""
+class FrozenEpisodes:
+    """The first ``n`` episodes of an episodic dataset, each drawn once
+    after seeding Python's and numpy's global generators with its index,
+    with the dataset's other attributes: two evaluator runs over it see the
+    same episodes."""
 
-    n_ways, k_shots = 3, 3
-    mean = (123.675, 116.28, 103.53)
-    std = (58.395, 57.12, 57.375)
-    sampling_origin_ds, sampling_origin_ds_subset = "SYNTH", "val"
-    finetune, sampling_cats, sampling_scenario = "Ignore", "base_", "parents"
-    COLORS = ((220, 60, 60), (60, 220, 60), (60, 60, 220))
-    REAL_CATS = (11, 23, 37)
+    def __init__(self, ds, n):
+        from fgn_torch.data.digests import draw_episodes
 
-    def __init__(self, n, seed=0, sizes=((480, 480), (480, 352), (466, 350)),
-                 S=128):
-        self.n, self.seed, self.sizes, self.S = n, seed, sizes, S
+        self.ds, self.samples = ds, draw_episodes(ds, n)
 
     def __len__(self):
-        return self.n
+        return len(self.samples)
 
-    @classmethod
-    def _paint(cls, rng, img, c, cy, cx, ry, rx):
-        """An ellipse of class c, with texture, into img → its bool mask."""
-        import numpy as np
+    def __getitem__(self, i):
+        return self.samples[i]
 
-        h, w = img.shape[:2]
-        y, x = np.ogrid[:h, :w]
-        m = ((y - cy) / ry) ** 2 + ((x - cx) / rx) ** 2 <= 1.0
-        tex = rng.randint(-30, 31, (int(m.sum()), 3))
-        img[m] = np.clip(np.array(cls.COLORS[c]) + tex, 0, 255)
-        return m
+    def __getattr__(self, name):
+        return getattr(self.ds, name)
 
-    def __getitem__(self, idx):
-        import numpy as np
 
-        rng = np.random.RandomState(self.seed * 100_003 + idx)
-        N, K, S = self.n_ways, self.k_shots, self.S
-        h, w = self.sizes[idx % len(self.sizes)]
-        img = rng.randint(0, 50, (h, w, 3)).astype(np.uint8)
-        g = rng.randint(2, 7)
-        cats = rng.randint(0, N, g)
-        boxes, masks = [], []
-        for c in cats:
-            ry, rx = rng.uniform(0.1, 0.35, 2) * (h, w)
-            cy, cx = rng.uniform(ry, h - ry), rng.uniform(rx, w - rx)
-            m = self._paint(rng, img, c, cy, cx, ry, rx)
-            masks.append(m)
-        for i, m in enumerate(masks):  # later instances occlude earlier
-            for later in masks[i + 1:]:
-                m &= ~later
-        # drop instances occluded (almost) whole; the last one never is
-        keep = [i for i, m in enumerate(masks) if m.sum() >= 64]
-        cats, masks = cats[keep], [masks[i] for i in keep]
-        for m in masks:
-            ys, xs = np.nonzero(m)
-            boxes.append([ys.min(), xs.min(), ys.max() + 1, xs.max() + 1])
-        spp_imgs = rng.randint(0, 50, (N * K, S, S, 3)).astype(np.uint8)
-        spp_masks = np.zeros((N * K, S, S), np.float32)
-        spp_boxes = np.zeros((N * K, 4), np.float32)
-        for i in range(N * K):
-            r = rng.uniform(0.2, 0.4, 2) * S
-            m = self._paint(rng, spp_imgs[i], i // K, S / 2, S / 2, *r)
-            spp_masks[i] = m
-            ys, xs = np.nonzero(m)
-            spp_boxes[i] = [ys.min(), xs.min(), ys.max() + 1, xs.max() + 1]
-        real = np.asarray(self.REAL_CATS, np.int64)
-        return {
-            "idx": idx,
-            "qry_child_idx": idx,
-            "qry_img": img,
-            "qry_bboxes": np.asarray(boxes, np.float32).reshape(-1, 4),
-            "qry_cat_ids": cats.astype(np.int64),
-            "qry_cat_ids_real": real[cats],
-            "qry_isegmaps": np.stack(masks).astype(np.uint8),
-            "spp_imgs": spp_imgs,
-            "spp_bboxes": spp_boxes,
-            "spp_isegmaps": spp_masks,
-            "cats_ids_to_sample_real": real,
-            "spp_insts_ids": np.arange(N * K, dtype=np.int64) + 1000 * idx,
-            "img_shape": np.asarray([h, w, 3], np.int64),
-        }
+def phase_engine(dev, gpu, work, warmup=2, iters=5):
+    """The system as a user runs it: the config file, the generated split,
+    its episodes, then training. Loads ``configs/fgn_train_mnistiseg_n3k3.py``
+    and its model config, holds the episode engine to the committed
+    reference stage by stage (``digests.check_stages``, which also
+    generates this host's MNISTISEG split into ``work`` and builds the
+    config's train and eval datasets over it), then trains the config's
+    model (R50-C4, GN, deep stem, avg-down, N3K3, bf16) at the config's
+    batch with its optimizer (Adagrad, warmup, RoI head ×0.1) on the train
+    dataset's episodes through ``EpisodeLoader``: ``warmup`` + ``iters``
+    steps of epoch 0, the same ``iters`` batches again from host memory
+    (no loader thread), and ``iters`` steps of epoch 1; each step timed
+    with CUDA events, with the launch counters set to 0 just before it and
+    read just after, and the host's wait for its batch; then one more step,
+    not counted, on epoch 0's first batch with its kernel calls recorded.
+    → (config, model config, eval dataset, the launches of epoch 0's timed
+    steps, that step's K1 forward, K1-bwd and K2 calls)."""
+    import os
+
+    import torch
+
+    import fgn_torch
+    from fgn_torch.data import digests as D
+    from fgn_torch.data.batching import EpisodeLoader, from_numpy, to_device
+    from fgn_torch.main import model_config_from_cfg
+    from fgn_torch.models.fgn import build_model
+    from fgn_torch.train.optim import build_optimizer, make_lr_schedule
+    from fgn_torch.train.train_step import make_train_step
+
+    t0 = time.perf_counter()
+    stages, ctx = D.check_stages(D.port_engine(),
+                                 os.path.dirname(fgn_torch.__file__), work)
+    check_s = time.perf_counter() - t0
+    for name, st in stages.items():
+        print(f"engine stage {name}: {st['items']} items, "
+              f"{len(st['differ'])} differ, held {st['held']}; {st['note']}"
+              + (f"; differing: {', '.join(st['differ'][:8])}"
+                 + (" ..." if len(st['differ']) > 8 else "")
+                 if st["differ"] else ""), flush=True)
+        check(st["held"] is True, f"engine stage {name} not held")
+    cfg = ctx.cfg
+    mcfg = model_config_from_cfg(cfg)
+    want = dict(backbone_norm="gn", deep_stem=True, avg_down=True,
+                feat_channels=1024, n_ways=3, k_shots=3,
+                compute_dtype="bfloat16")
+    check(all(getattr(mcfg, k) == v for k, v in want.items()),
+          f"engine: config's model {mcfg} is not {want}")
+    train, val = ctx.train, ctx.val
+    sec = ctx.seconds
+    print(f"engine: config {D.CONFIG}; generated {D.QUANTITIES} MNISTISEG "
+          f"images in {sec['generate']:.3f} s; train dataset (databag + "
+          f"support bank) {sec['train_dataset']:.3f} s, {len(train)} "
+          f"episodes; eval dataset {sec['eval_dataset']:.3f} s, {len(val)} "
+          f"episodes; {2 * D.N_EPISODES} seeded episodes drawn in "
+          f"{sec['episodes']:.3f} s; stage check {check_s:.1f} s "
+          f"(host clock)", flush=True)
+
+    bs = int(cfg.batch_size)
+    model = build_model(mcfg, dev, seed=0)
+    o = cfg.optimizer
+    schedule = make_lr_schedule(
+        base_lr=float(o.lr), steps_per_epoch=max(len(train) // bs, 1),
+        **dict(cfg.lr_schedule))
+    opt = build_optimizer(model, base_lr=float(o.lr),
+                          weight_decay=float(o.weight_decay),
+                          optimizer=o.type,
+                          roi_head_lr_mult=float(o.roi_head_lr_mult),
+                          schedule=schedule)
+    step = make_train_step(model, opt)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    builds = []
+
+    def stream(epoch):
+        """The loader's batches of an epoch; each build on the prefetch
+        thread timed."""
+        train.reshuffle(epoch)
+        loader = EpisodeLoader(train, bs, max_gt=int(cfg.max_gt))
+        check(len(loader) >= warmup + iters,
+              f"engine: {len(loader)} train batches, want {warmup + iters}")
+        build = loader._build
+
+        def timed_build(indices):
+            t = time.perf_counter()
+            out = build(indices)
+            builds.append((len(indices), time.perf_counter() - t))
+            return out
+
+        loader._build = timed_build
+        return iter(loader)
+
+    def run(batches, n, what):
+        """n train steps over ``batches``: per step its time (CUDA events),
+        the host's wait for the batch and its upload (host clock), the
+        losses; the launches checked per step. → (rows, the host batches,
+        the launches summed)."""
+        rows, kept, total = [], [], {}
+        for i in range(n):
+            t = time.perf_counter()
+            batch, _ = next(batches)
+            wait = time.perf_counter() - t
+            t = time.perf_counter()
+            b = to_device(from_numpy(**batch._asdict()), dev)
+            torch.cuda.synchronize()
+            h2d = time.perf_counter() - t
+            zero_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            metrics = step(b, gen)
+            end.record()
+            end.synchronize()
+            counts = read_counts()
+            check(counts == TRAIN_KERNELS, f"engine train, {what}, step {i}: "
+                                           f"launches {counts}, want "
+                                           f"{TRAIN_KERNELS}")
+            losses = {k: float(v) for k, v in metrics.items()
+                      if k.startswith("loss_")}
+            check(all(math.isfinite(v) for v in losses.values()),
+                  f"engine train, {what}, step {i}: losses {losses}")
+            rows.append((start.elapsed_time(end), wait * 1e3, h2d * 1e3,
+                         losses))
+            kept.append((batch, None))
+            total = {k: total.get(k, 0) + v for k, v in counts.items()}
+            print(f"engine train, {what}, step {i}: "
+                  f"{rows[-1][0]:.3f} ms (CUDA events), batch wait "
+                  f"{wait * 1e3:.3f} ms, H2D {h2d * 1e3:.3f} ms (host clock); "
+                  f"losses { {k: round(v, 4) for k, v in losses.items()} }",
+                  flush=True)
+        return rows, kept, total
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # epoch 0 from the loader, its prefetch thread building the next
+    # batches while the steps run; the same batches again from host memory
+    # (no thread); then epoch 1 from a fresh loader
+    it = stream(0)
+    run(it, warmup, "warm-up")
+    rows, kept, total = run(it, iters, "epoch 0 from the loader")
+    it.close()
+    mem, _, _ = run(iter(kept), iters, "the same batches from memory")
+    it = stream(1)
+    rows1, _, _ = run(it, iters, "epoch 1 from the loader")
+    it.close()
+    peak = torch.cuda.max_memory_allocated()
+    calls = capture_train_calls(
+        step, to_device(from_numpy(**kept[0][0]._asdict()), dev), gen)
+    n_eps = sum(n for n, _ in builds)
+    build_s = sum(t for _, t in builds)
+
+    def med(rs, k=0):
+        return statistics.median(r[k] for r in rs)
+
+    print(f"engine train: b{bs} 480x480 N3K3 S128 bf16 {o.type} lr {o.lr}: "
+          f"step median {med(rows):.3f} ms from the loader (batch wait "
+          f"median {med(rows, 1):.3f} ms), {med(mem):.3f} ms from memory, "
+          f"{med(rows1):.3f} ms from the loader in epoch 1 (batch wait "
+          f"median {med(rows1, 1):.3f} ms; n={iters} each); launches per step "
+          f"{TRAIN_KERNELS}; peak memory {peak / 2**30:.2f} GiB; episode "
+          f"construction on the prefetch thread: {n_eps} episodes in "
+          f"{len(builds)} batches, {build_s:.3f} s = "
+          f"{n_eps / build_s:.2f} episodes/s (collation included); on {gpu}",
+          flush=True)
+    del model, opt, step, it, kept
+    torch.cuda.empty_cache()
+    return cfg, mcfg, val, total, calls
 
 
 class CountedStep:
@@ -1496,15 +1619,21 @@ def eval_pass(ev, step, run, n_episodes, what):
     return metrics, counts
 
 
-def phase_eval(dev, gpu, n=60, B=8, pad_hw=(480, 480), twin_n=16, **ds_kw):
-    """Episodic evaluation (``Evaluator.run``) of the flagship (bf16, seeded
-    weights) over ``n`` episodes of ``EvalEpisodes`` at batch B: three
-    passes (stream and cache, cached, ``run_fresh``), each timed and split,
-    with K1 ×3 and K2 ×2 per batch; pass 2's metrics equal pass 1's; pass
-    2's pickled detections equal, bit for bit, a plain loop of the same
-    step over the cached batches synchronized after each; then an f32 twin
-    over ``twin_n`` episodes (TF32 off) through the kernels and through the
-    plain versions. → the launch counts of pass 1."""
+def phase_eval(dev, gpu, ds, mcfg, B=8, pad_hw=(480, 480), twin_n=16,
+               min_episodes=60):
+    """Episodic evaluation (``Evaluator.run``) of the model of ``mcfg``
+    (seeded weights) over every episode of the eval dataset ``ds`` at batch
+    B: three passes (stream and cache, cached, ``run_fresh``), each timed and
+    split, with K1 ×3 and K2 ×2 per batch; pass 1 renders one episode
+    (``ds.visualize_result``, best-effort in the evaluator; the PNG must
+    exist); pass 2's metrics equal pass 1's; pass 2's pickled detections
+    equal, bit for bit, a plain loop of the same step over the cached
+    batches synchronized after each; then an f32 twin over the first
+    ``twin_n`` episodes (TF32 off) through the kernels and through the
+    plain versions. → (the launch counts of pass 1, the kernel calls of the
+    eval step on pass 1's first batch, recorded on one more step that is not
+    counted)."""
+    import os
     import tempfile
 
     import numpy as np
@@ -1519,20 +1648,28 @@ def phase_eval(dev, gpu, n=60, B=8, pad_hw=(480, 480), twin_n=16, **ds_kw):
 
     check(RLE.backend() == "native", f"RLE backend {RLE.backend()}, want "
                                      f"native")
-    ds = EvalEpisodes(n, **ds_kw)
-    model = build_model(flagship_cfg(), dev, seed=0)
+    n = len(ds)
+    check(n >= min_episodes, f"eval: {n} episodes, want {min_episodes}")
+    model = build_model(mcfg, dev, seed=0)
     raw = make_eval_step(model)
     step = CountedStep(raw)
     with tempfile.TemporaryDirectory() as work:
         ev = Evaluator(model, ds, batch_size=B, eval_step=step, work_dir=work,
-                       pad_hw=pad_hw, max_gt=30, n_plots=0)
+                       pad_hw=pad_hw, max_gt=30, n_plots=1,
+                       mask_thr=mcfg.mask_thr)
         m1, counts = eval_pass(ev, step, ev.run, n, "1 (stream and cache)")
+        png = os.path.join(work, "eval_vis", "Result 000.png")
+        png_bytes = os.path.getsize(png) if os.path.isfile(png) else 0
+        check(png_bytes > 0, f"eval: no render at {png}")
+        ev.n_plots = 0
         m2, _ = eval_pass(ev, step, ev.run, n, "2 (cached)")
         res2 = read_results(ev)
         eval_pass(ev, step, ev.run_fresh, n, "3 (run_fresh)")
     check(m2 == m1, f"eval: pass 2 metrics {m2} differ from pass 1's {m1}")
     check(ev._episode_cache[-1][1].n_real == n - B * (len(ev._episode_cache) - 1),
           "eval: last batch n_real")
+    calls = capture_kernel_calls(model, to_device(
+        from_numpy(**ev._episode_cache[0][0]._asdict()), dev))
 
     # the double-buffered pass against a synchronized loop, bit for bit
     i = n_dt = 0
@@ -1560,17 +1697,20 @@ def phase_eval(dev, gpu, n=60, B=8, pad_hw=(480, 480), twin_n=16, **ds_kw):
     print(f"eval: pass 2's {n} episodes ({n_dt} detections) bit-identical to "
           f"a synchronized loop over the cached batches; pass 2 metrics equal "
           f"pass 1's; on {gpu}", flush=True)
+    print(f"eval: pass 1 rendered episode 0 (visualize_result) into a "
+          f"{png_bytes}-byte PNG", flush=True)
     del model, ev, raw, step
     torch.cuda.empty_cache()
-    phase_eval_twin(dev, twin_n, B, pad_hw, ds_kw)
-    return counts
+    phase_eval_twin(dev, FrozenEpisodes(ds, twin_n), mcfg, B, pad_hw)
+    return counts, calls
 
 
-def phase_eval_twin(dev, n, B, pad_hw, ds_kw):
-    """The evaluator at f32 (TF32 off) over n episodes through the kernels
-    and through the plain versions, same weights: per episode the same
-    valid detections and categories; boxes, scores and mask logits within
-    ``phase_plain_twin``'s tolerances; the four metrics within 1e-4."""
+def phase_eval_twin(dev, ds, mcfg, B, pad_hw):
+    """The evaluator at f32 (TF32 off) over the episodes of ``ds`` through
+    the kernels and through the plain versions, same weights, same
+    episodes: per episode the same valid detections and categories; boxes,
+    scores and mask logits within ``phase_plain_twin``'s tolerances; the
+    four metrics within 1e-4."""
     import tempfile
 
     import fgn_torch.models.fgn as fgn_mod
@@ -1579,9 +1719,9 @@ def phase_eval_twin(dev, n, B, pad_hw, ds_kw):
     from fgn_torch.train.evaluator import Evaluator
     from fgn_torch.train.train_step import make_eval_step
 
-    model = fgn_mod.build_model(flagship_cfg(compute_dtype="float32"), dev,
-                                seed=0)
-    ds = EvalEpisodes(n, **ds_kw)
+    model = fgn_mod.build_model(
+        dataclasses.replace(mcfg, compute_dtype="float32"), dev, seed=0)
+    n = len(ds)
     runs = []
     for plain in (False, True):
         step = CountedStep(make_eval_step(model), keep=True)
@@ -1593,7 +1733,8 @@ def phase_eval_twin(dev, n, B, pad_hw, ds_kw):
                 st.enter_context(mock.patch.object(
                     fgn_mod, "greedy_alive_cuda", _greedy_alive))
             ev = Evaluator(model, ds, batch_size=B, eval_step=step,
-                           work_dir=work, pad_hw=pad_hw, max_gt=30, n_plots=0)
+                           work_dir=work, pad_hw=pad_hw, max_gt=30, n_plots=0,
+                           mask_thr=mcfg.mask_thr)
             zero_counts()
             metrics = ev.run()
             counts = read_counts()
@@ -1704,10 +1845,8 @@ def main(argv=None):
                              twin=("generic",), out_size=4, sampling_ratio=3,
                              aligned=False)
     phase_nms(dev)
-    counts, model, batch, calls = phase_main_path(dev, gpu)
-    recs = kernel_records(calls)
-    for name, rec in recs.items():
-        rec["launches"] = counts[name]
+    _, model, batch, calls = phase_main_path(dev, gpu)
+    kernel_records(calls)  # printed; the JSON keeps this slice's paths
     if args.profile:
         import fgn_torch.models.fgn as fgn_mod
 
@@ -1736,32 +1875,53 @@ def main(argv=None):
                                   if name == "nms_keep"))
     del calls
     torch.cuda.empty_cache()
-    train_counts, fwd_calls, bwd_calls, nms_calls = phase_train(
+    _, fwd_calls, bwd_calls, nms_calls = phase_train(
         dev, gpu, profile=args.profile)
     for i, (a, k) in enumerate(fwd_calls):
         k1_record("train-path", i, a, k)
     kernel_records(nms_calls, where="train-path")
-    recs["roi_align_backward"] = backward_record(bwd_calls)
-    recs["roi_align_backward"]["launches"] = train_counts["roi_align_backward"]
+    toy = backward_record(bwd_calls)
     if args.profile:
-        k1bwd_sweep(*recs["roi_align_backward"]["_args"])
-    recs["roi_align_backward"].pop("_args")
-    del fwd_calls, bwd_calls, nms_calls
+        k1bwd_sweep(*toy["_args"])
+    del toy, fwd_calls, bwd_calls, nms_calls
     torch.cuda.empty_cache()
     phase_train_twin(dev)
     torch.cuda.empty_cache()
-    eval_counts = phase_eval(dev, gpu)
-    for name in ("roi_align", "nms_keep"):  # this slice's path: eval pass 1
-        recs[name]["launches"] = eval_counts[name]
     print(cv2_line(), flush=True)
+    from fgn_torch.data.digests import CONFIG
+
+    with tempfile.TemporaryDirectory() as work:
+        cfg, mcfg, val, engine_counts, (fwd_calls, bwd_calls, nms_calls) = (
+            phase_engine(dev, gpu, work))
+        for i, (a, k) in enumerate(fwd_calls):
+            k1_record("engine-train", i, a, k)
+        kernel_records(nms_calls, where="engine-train")
+        bwd = backward_record(bwd_calls, where="engine-train")
+        del fwd_calls, bwd_calls, nms_calls
+        torch.cuda.empty_cache()
+        eval_counts, eval_calls = phase_eval(dev, gpu, val, mcfg,
+                                             B=int(cfg.eval_batch_size))
+    # The kernels line reads this slice's paths, each kernel all its numbers
+    # from one: K1 and K2 from eval pass 1 (launches) and its first batch's
+    # calls (error, times, bound), K1-bwd from the timed train steps on
+    # real episodes (launches) and one more step's calls.
+    recs = kernel_records(eval_calls, where="eval")
+    del eval_calls
+    for name in ("roi_align", "nms_keep"):
+        recs[name].update(launches=eval_counts[name],
+                          path="eval pass 1, " + CONFIG)
+    bwd.pop("_args")
+    recs["roi_align_backward"] = dict(
+        bwd, launches=engine_counts["roi_align_backward"],
+        path="engine train steps, " + CONFIG)
     print(f"phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = []
     for rec in (recs["roi_align"], recs["roi_align_backward"], recs["nms_keep"]):
         kernels.append({k: rec[k] for k in (
-            "name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "earlier_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")})
+            "name", "route", "source", "replaces", "path", "launches",
+            "max_abs_err", "ms", "earlier_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")})
     print(gpu_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

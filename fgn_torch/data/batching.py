@@ -9,14 +9,12 @@ builds it on the host as numpy arrays, byte for byte the JAX package's, and
 ``EpisodeMeta`` carries the host-only ragged leftovers the evaluator needs
 (original YXYX boxes, real cat ids, full-resolution gt masks, replay ids).
 ``EpisodeLoader`` iterates a FewShotISEG-like dataset in order, building
-episodes on a prefetch thread. Nothing here needs cv2: the area resample of
-gt masks whose size is not a multiple of the mask grid is done in numpy
-(``_area_weights``).
+episodes on a prefetch thread. Only the area resample of gt masks whose size
+is not a multiple of the mask grid needs cv2, and imports it where it runs.
 """
 
 from __future__ import annotations
 
-import math
 import queue
 import threading
 import traceback
@@ -117,36 +115,15 @@ class EpisodeMeta(NamedTuple):
 _MASK_DOWNSCALE = 4
 
 
-def _area_weights(src: int, dst: int) -> np.ndarray:
-    """(dst, src) float32 weights of cv2.resize's INTER_AREA along one axis
-    when shrinking ``src`` pixels to ``dst``: each output pixel averages the
-    source interval [d·s, (d+1)·s), s = src/dst, with the border pixels
-    weighted by their covered fraction (cv2's ``computeResizeAreaTab``)."""
-    scale = src / dst
-    w = np.zeros((dst, src), np.float64)
-    for d in range(dst):
-        f1 = d * scale
-        f2 = f1 + scale
-        cell = min(scale, src - f1)
-        s2 = min(math.floor(f2), src - 1)
-        s1 = min(math.ceil(f1), s2)
-        if s1 - f1 > 1e-3:
-            w[d, s1 - 1] = (s1 - f1) / cell
-        w[d, s1:s2] = 1.0 / cell
-        if f2 - s2 > 1e-3:
-            w[d, s2] = min(f2 - s2, 1.0, cell) / cell
-    return w.astype(np.float32)
-
-
 def _downsample_mask(masks: np.ndarray, mh: int, mw: int) -> np.ndarray:
     """(g, h, w) binary → (g, mh, mw) float32 via area resampling.
 
     When (h, w) is an exact (mh, mw) multiple — always true for the
     stride-16-snapped episode sizes — the area resample is a block mean,
-    computed over the whole stack in one numpy reduction. Otherwise one
-    separable pair of fractional-area weight matrices resamples the stack
-    (what the JAX package gets from ``cv2.resize(..., INTER_AREA)`` mask by
-    mask; equal within float32 rounding)."""
+    computed over the whole stack in one numpy reduction. Otherwise
+    ``cv2.resize(..., INTER_AREA)`` resamples mask by mask, as the JAX
+    package does; cv2 is imported there only, so the evaluation path
+    imports without it."""
     if len(masks) == 0:
         return np.zeros((0, mh, mw), np.float32)
     g, h, w = masks.shape
@@ -159,8 +136,14 @@ def _downsample_mask(masks: np.ndarray, mh: int, mw: int) -> np.ndarray:
             .astype(np.float32)
             .mean(axis=(2, 4))
         )
-    wy, wx = _area_weights(h, mh), _area_weights(w, mw)
-    return wy @ np.asarray(masks, np.float32) @ wx.T
+    import cv2
+
+    out = np.empty((g, mh, mw), np.float32)
+    for i, m in enumerate(masks):
+        out[i] = cv2.resize(
+            np.asarray(m, np.float32), (mw, mh), interpolation=cv2.INTER_AREA
+        )
+    return out
 
 
 def collate_episodes(

@@ -39,6 +39,25 @@ def box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor):
     return inter / union.clamp(min=1e-9)
 
 
+def box_iou_np(boxes1: np.ndarray, boxes2: np.ndarray) -> np.ndarray:
+    """Host NumPy pairwise IoU (for data tooling: synthetic generator paste
+    check, VOC parsing; reference cp_utils/create_img_from_chars.py:87)."""
+    boxes1 = np.asarray(boxes1, dtype=np.float64).reshape(-1, 4)
+    boxes2 = np.asarray(boxes2, dtype=np.float64).reshape(-1, 4)
+    area1 = np.maximum(boxes1[:, 2] - boxes1[:, 0], 0) * np.maximum(
+        boxes1[:, 3] - boxes1[:, 1], 0
+    )
+    area2 = np.maximum(boxes2[:, 2] - boxes2[:, 0], 0) * np.maximum(
+        boxes2[:, 3] - boxes2[:, 1], 0
+    )
+    lt = np.maximum(boxes1[:, None, :2], boxes2[None, :, :2])
+    rb = np.minimum(boxes1[:, None, 2:], boxes2[None, :, 2:])
+    wh = np.maximum(rb - lt, 0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area1[:, None] + area2[None, :] - inter
+    return inter / np.maximum(union, 1e-9)
+
+
 def delta_encode(proposals, gt, means=_DEFAULT_MEANS, stds=_DEFAULT_STDS):
     """XYXY proposals + XYXY gt → normalized (dx, dy, dw, dh) targets."""
     pw = proposals[..., 2] - proposals[..., 0]

@@ -1,10 +1,13 @@
 """The port's episodic evaluation end to end against the JAX package's
 ``Evaluator``, on the CPU, on a tiny MNISTISEG split generated on the host
 (128 px, no download) with the same weights on both sides (flax
-``model.init`` → ``fgn_torch.bridge``).
+``model.init`` → ``fgn_torch.bridge``). Each evaluator reads its own
+package's episodes: the JAX package's ``FewShotISEG`` and the port's, over
+the same split.
 
 ``FewShotISEG.__getitem__`` draws from Python's global ``random``, so every
-episode is drawn once into ``Frozen``, which both evaluators read.
+episode of each package is drawn once into ``Frozen``, after the same seed;
+the two packages' episodes are equal byte for byte.
 
 Tolerances (f32 on both sides; the model's own, tests/test_torch_model.py):
 per-episode valid counts, categories and gt RLE equal; boxes within
@@ -23,8 +26,8 @@ import torch
 
 from fgn_tpu.data.batching import collate_episodes as j_collate
 from fgn_tpu.data.fsisegeval import FSISEGEval as JFSISEGEval
-from fgn_tpu.data.fst_bindings import MNISTFewShotISEG
-from fgn_tpu.data.mnistiseg import MNISTISEG
+from fgn_tpu.data.fst_bindings import MNISTFewShotISEG as JMNISTFewShotISEG
+from fgn_tpu.data.mnistiseg import MNISTISEG as JMNISTISEG
 from fgn_tpu.models.fgn import FGN as JFGN
 from fgn_tpu.models.fgn import FGNConfig as JConfig
 from fgn_tpu.parallel.mesh import make_mesh
@@ -33,6 +36,9 @@ from fgn_tpu.train.train_step import make_eval_step as j_make_eval_step
 from fgn_torch.bridge import load_flax_params
 from fgn_torch.config import FGNConfig
 from fgn_torch.data import rle as RLE
+from fgn_torch.data.digests import digest
+from fgn_torch.data.fst_bindings import MNISTFewShotISEG
+from fgn_torch.data.mnistiseg import MNISTISEG
 from fgn_torch.models.fgn import FGN
 from fgn_torch.ops.mask_paste import paste_masks_np
 from fgn_torch.train.evaluator import Evaluator
@@ -45,19 +51,19 @@ IMG = 128.0
 MASK_THR = 0.5
 
 
-class TinyMNISTISEG(MNISTISEG):
-    img_size = 128
-    target_size = 128
-    max_size = 128
-    ds_name = "tiny_mnistiseg"
-    sizes_max_amount = {"small": 2, "large": 2}
-    sizes_min_max_ratios = {"small": [0.7, 1.0], "large": [1.0, 1.4]}
-
-
-class TinyFewShot(MNISTFewShotISEG):
-    inner_ds_cl = TinyMNISTISEG
-    spp_img_size = 64
-    fst_dir_name = "tiny_fst"
+TINY_RAW = dict(
+    img_size=128, target_size=128, max_size=128, ds_name="tiny_mnistiseg",
+    sizes_max_amount={"small": 2, "large": 2},
+    sizes_min_max_ratios={"small": [0.7, 1.0], "large": [1.0, 1.4]},
+)
+# The tiny split's raw dataset and its binding, in the port and in the JAX
+# package.
+TinyMNISTISEG = type("TinyMNISTISEG", (MNISTISEG,), dict(TINY_RAW))
+TinyFewShot = type("TinyFewShot", (MNISTFewShotISEG,), dict(
+    inner_ds_cl=TinyMNISTISEG, spp_img_size=64))
+JTinyMNISTISEG = type("JTinyMNISTISEG", (JMNISTISEG,), dict(TINY_RAW))
+JTinyFewShot = type("JTinyFewShot", (JMNISTFewShotISEG,), dict(
+    inner_ds_cl=JTinyMNISTISEG, spp_img_size=64))
 
 
 # tests/test_train_e2e.py's TINY_MODEL
@@ -109,7 +115,7 @@ def evals(tmp_path_factory):
     TinyMNISTISEG.create(
         root=root, quantities={"train": 4, "val": 6, "test": 1}, seed=7
     )
-    ds = Frozen(TinyFewShot(dict(
+    cfg = dict(
         n_ways=1, k_shots=1,
         ds_base_="MNISTISEG", ds_base__subset="train",
         ds_novel="MNISTISEG", ds_novel_subset="val",
@@ -118,12 +124,15 @@ def evals(tmp_path_factory):
         repeats=1, finetune="Ignore", shuffle=False,
         qry_cats_choice_random=True,
         delete_qry_insts_in_spp_insts_on_train=False,
-        inner_root=root, root=str(tmp / "fst"),
-    )))
+        inner_root=root,
+    )
+    ds = Frozen(TinyFewShot(dict(cfg, root=str(tmp / "fst"))))
+    jds = Frozen(JTinyFewShot(dict(cfg, root=str(tmp / "jfst"))))
+    assert digest(ds.samples) == digest(jds.samples)
     assert len(ds) % 4, "want a padded last batch"
 
     jm = JFGN(cfg=JConfig(**TINY_MODEL))
-    jb, _ = j_collate(ds.samples[:1], ds.mean, ds.std, max_gt=8)
+    jb, _ = j_collate(jds.samples[:1], jds.mean, jds.std, max_gt=8)
     params = jax.device_get(jax.jit(
         lambda k, b, r: jm.init(k, b, r, method=JFGN.train_forward)
     )(jax.random.PRNGKey(0), jb, jax.random.PRNGKey(1)))
@@ -135,7 +144,7 @@ def evals(tmp_path_factory):
 
     jstep, _ = j_make_eval_step(jm, make_mesh(jax.devices("cpu")[:1]))
     jrec = Recorder(jstep, np.asarray)
-    jev = JEvaluator(jm, ds, batch_size=4, eval_step=jrec,
+    jev = JEvaluator(jm, jds, batch_size=4, eval_step=jrec,
                      work_dir=str(tmp / "jax"), max_gt=8, n_plots=0,
                      mask_thr=MASK_THR)
     trec = Recorder(make_eval_step(tm), lambda t: t.numpy().copy())
