@@ -36,7 +36,15 @@ the kernels with launch counters:
     render by ``visualize_result``, pass 2's metrics equal to pass 1's and
     its detections bit-identical to a synchronized loop, each kernel at the
     calls of the first batch, and an f32 eval twin over 16 frozen episodes
-    through the plain versions. It prints the machine's cv2 version.
+    through the plain versions. It prints the machine's cv2 version;
+  * the run loop as a user drives it, ``python -m fgn_torch.main`` and
+    ``python -m fgn_torch.main_ft`` on config files derived from the same
+    config and ``configs/fgn_ft_mnistiseg.py`` over the generated split:
+    a run killed by its RSS limit (exit 42) at its first check, its resume
+    in this process (counted: K1 x2, K1-bwd x2, K2 x1 a step, K1 x3, K2 x2
+    an eval batch) to the end of its second epoch with metrics at every
+    check, and the finetune grid's cell from its last checkpoint, run
+    twice (the second skips the completed cell).
 
 With ``--profile`` it also prints where the device time of one flagship
 forward and of one train step goes (torch.profiler), K1's staged kernel
@@ -1385,7 +1393,9 @@ def phase_engine(dev, gpu, work, warmup=2, iters=5):
     read just after, and the host's wait for its batch; then one more step,
     not counted, on epoch 0's first batch with its kernel calls recorded.
     → (config, model config, eval dataset, the launches of epoch 0's timed
-    steps, that step's K1 forward, K1-bwd and K2 calls)."""
+    steps, that step's K1 forward, K1-bwd and K2 calls, the generated split's
+    directory, the median of epoch 0's timed steps on the host clock, from
+    the wait for the batch to the synchronized step, in ms)."""
     import os
 
     import torch
@@ -1393,9 +1403,8 @@ def phase_engine(dev, gpu, work, warmup=2, iters=5):
     import fgn_torch
     from fgn_torch.data import digests as D
     from fgn_torch.data.batching import EpisodeLoader, from_numpy, to_device
-    from fgn_torch.main import model_config_from_cfg
+    from fgn_torch.main import model_config_from_cfg, optimizer_from_cfg
     from fgn_torch.models.fgn import build_model
-    from fgn_torch.train.optim import build_optimizer, make_lr_schedule
     from fgn_torch.train.train_step import make_train_step
 
     t0 = time.perf_counter()
@@ -1429,14 +1438,8 @@ def phase_engine(dev, gpu, work, warmup=2, iters=5):
     bs = int(cfg.batch_size)
     model = build_model(mcfg, dev, seed=0)
     o = cfg.optimizer
-    schedule = make_lr_schedule(
-        base_lr=float(o.lr), steps_per_epoch=max(len(train) // bs, 1),
-        **dict(cfg.lr_schedule))
-    opt = build_optimizer(model, base_lr=float(o.lr),
-                          weight_decay=float(o.weight_decay),
-                          optimizer=o.type,
-                          roi_head_lr_mult=float(o.roi_head_lr_mult),
-                          schedule=schedule)
+    # the optimizer and its schedule as fgn_torch.main builds them
+    opt = optimizer_from_cfg(cfg, model, max(len(train) // bs, 1))
     step = make_train_step(model, opt)
     gen = torch.Generator(device=dev).manual_seed(0)
     builds = []
@@ -1466,7 +1469,7 @@ def phase_engine(dev, gpu, work, warmup=2, iters=5):
         the launches summed)."""
         rows, kept, total = [], [], {}
         for i in range(n):
-            t = time.perf_counter()
+            t = t_host = time.perf_counter()
             batch, _ = next(batches)
             wait = time.perf_counter() - t
             t = time.perf_counter()
@@ -1480,6 +1483,7 @@ def phase_engine(dev, gpu, work, warmup=2, iters=5):
             metrics = step(b, gen)
             end.record()
             end.synchronize()
+            host = time.perf_counter() - t_host
             counts = read_counts()
             check(counts == TRAIN_KERNELS, f"engine train, {what}, step {i}: "
                                            f"launches {counts}, want "
@@ -1489,12 +1493,13 @@ def phase_engine(dev, gpu, work, warmup=2, iters=5):
             check(all(math.isfinite(v) for v in losses.values()),
                   f"engine train, {what}, step {i}: losses {losses}")
             rows.append((start.elapsed_time(end), wait * 1e3, h2d * 1e3,
-                         losses))
+                         losses, host * 1e3))
             kept.append((batch, None))
             total = {k: total.get(k, 0) + v for k, v in counts.items()}
             print(f"engine train, {what}, step {i}: "
                   f"{rows[-1][0]:.3f} ms (CUDA events), batch wait "
-                  f"{wait * 1e3:.3f} ms, H2D {h2d * 1e3:.3f} ms (host clock); "
+                  f"{wait * 1e3:.3f} ms, H2D {h2d * 1e3:.3f} ms, batch to "
+                  f"synchronized step {host * 1e3:.3f} ms (host clock); "
                   f"losses { {k: round(v, 4) for k, v in losses.items()} }",
                   flush=True)
         return rows, kept, total
@@ -1525,7 +1530,9 @@ def phase_engine(dev, gpu, work, warmup=2, iters=5):
           f"step median {med(rows):.3f} ms from the loader (batch wait "
           f"median {med(rows, 1):.3f} ms), {med(mem):.3f} ms from memory, "
           f"{med(rows1):.3f} ms from the loader in epoch 1 (batch wait "
-          f"median {med(rows1, 1):.3f} ms; n={iters} each); launches per step "
+          f"median {med(rows1, 1):.3f} ms; n={iters} each); on the host "
+          f"clock, from the wait for the batch to the synchronized step, "
+          f"{med(rows, 4):.3f} ms from the loader; launches per step "
           f"{TRAIN_KERNELS}; peak memory {peak / 2**30:.2f} GiB; episode "
           f"construction on the prefetch thread: {n_eps} episodes in "
           f"{len(builds)} batches, {build_s:.3f} s = "
@@ -1533,7 +1540,7 @@ def phase_engine(dev, gpu, work, warmup=2, iters=5):
           flush=True)
     del model, opt, step, it, kept
     torch.cuda.empty_cache()
-    return cfg, mcfg, val, total, calls
+    return cfg, mcfg, val, total, calls, ctx.raw, med(rows, 4)
 
 
 class CountedStep:
@@ -1767,6 +1774,438 @@ def phase_eval_twin(dev, ds, mcfg, B, pad_hw):
           flush=True)
 
 
+def write_config(fp, base, overrides):
+    """A config file at ``fp`` whose ``_base_`` is ``base`` and whose keys
+    are ``overrides`` (dicts merge into the base's, as ``_base_`` does);
+    each override printed."""
+    with open(fp, "w") as f:
+        f.write(f"_base_ = [{base!r}]\n")
+        for k, v in overrides.items():
+            f.write(f"{k} = {v!r}\n")
+            print(f"runner config {fp}: {k} = {v!r}", flush=True)
+    return fp
+
+
+class Tee:
+    """Standard output that is also kept: the Runner's log lines."""
+
+    def __init__(self, out):
+        import io
+
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, s):
+        self.buf.write(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+RUNNER_LINE = ("Resumed from", "ckpt scheduled", " eval: ", "planned restart",
+               "Initialized from", "Skipping completed", "=== FT grid",
+               "tensorboard:", "WARNING", "Error", "Traceback")
+
+
+def run_cli(what, args, want_rc, env=None, timeout=600):
+    """``python -m <args>`` from the repo's root in a subprocess; its exit
+    code must be ``want_rc``. Prints the wall time, the exit code and the
+    Runner's log lines. → its standard output."""
+    import os
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m"] + args, cwd=os.path.dirname(
+            os.path.abspath(__file__)), env=env, capture_output=True,
+        text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        if any(k in line for k in RUNNER_LINE):
+            print(f"runner {what} | {line[:400]}", flush=True)
+    print(f"runner {what}: python -m {' '.join(args[:2])} ... exited "
+          f"{proc.returncode} in {wall:.3f} s (host clock, process start "
+          f"included)", flush=True)
+    if proc.returncode != want_rc or "Traceback" in proc.stderr:
+        print(proc.stderr[-4000:], file=sys.stderr, flush=True)
+    check(proc.returncode == want_rc,
+          f"runner {what}: exit code {proc.returncode}, want {want_rc}")
+    check_clean(proc.stdout + proc.stderr, what)
+    return proc.stdout
+
+
+def check_clean(text, what):
+    """No exception was caught and reported: the Runner soft-fails a save
+    or an eval pass, and the evaluator its render, with a traceback."""
+    for bad in ("Traceback", "WARNING: checkpoint save failed",
+                "WARNING: evaluation failed", "WARNING: fresh-support eval",
+                "rendering failed"):
+        check(bad not in text, f"runner {what}: '{bad}' in its output")
+
+
+def eval_metrics(out):
+    """The metrics dicts the Runner printed: [(step or 'fresh', {tag:
+    value})] in order; each value parsed from its repr."""
+    import re
+
+    found = []
+    for line in out.splitlines():
+        m = re.search(r"step (\d+) eval: (\{.*\})$", line)
+        f = re.search(r"final fresh-support eval: (\{.*\})$", line)
+        if not (m or f):
+            continue
+        body = m.group(2) if m else f.group(1)
+        vals = {k: float(v) for k, v in re.findall(
+            r"'([^']+)': (?:np\.float\d+\()?([-+0-9.eEna]+)\)?", body)}
+        found.append((int(m.group(1)) if m else "fresh", vals))
+    return found
+
+
+def check_metrics(found, what, n_tags):
+    for where, vals in found:
+        check(len(vals) == n_tags and all(
+            math.isfinite(v) and 0.0 <= v <= 1.0 for v in vals.values()),
+            f"runner {what}: metrics at {where}: {vals}")
+
+
+def ckpt_bytes(mgr, step):
+    """Bytes of the files of checkpoint ``step`` and of its sidecar."""
+    import os
+
+    path = os.path.join(mgr.dir, str(step))
+    side = os.path.join(mgr.dir, f"ds_state_{step}.json")
+    return (sum(os.path.getsize(os.path.join(path, f))
+                for f in os.listdir(path)),
+            os.path.getsize(side) if os.path.isfile(side) else 0)
+
+
+def recording_runner(runners):
+    """A ``Runner`` that records, through its public methods and the
+    callables it was given: the host-clock time at which each train step
+    is called, each save's and each eval pass's host-clock time, the steps
+    of its checks, the train and eval steps it called, and its first train
+    batch and first eval batch (on the card). Each instance is appended to
+    ``runners``."""
+    from fgn_torch.train.loop import Runner
+
+    class Recorded(Runner):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.entries, self.saves, self.checks = {}, [], []
+            self.eval_s, self.n_eval, self.first = [], 0, {}
+            self.raw_step, step = self.train_step, self.train_step
+
+            def train_step(batch, generator=None):
+                self.entries[self.step] = time.perf_counter()
+                self.first.setdefault("train", batch)
+                return step(batch, generator=generator)
+
+            self.train_step = train_step
+            for ev in self.evaluators:
+                ev.eval_step = self._counted(ev.eval_step)
+                ev.run = self._timed(ev.run)
+            runners.append(self)
+
+        def _counted(self, eval_step):
+            def counted(batch):
+                self.n_eval += 1
+                self.first.setdefault("eval", batch)
+                return eval_step(batch)
+            return counted
+
+        def _timed(self, run):
+            def timed():
+                t0 = time.perf_counter()
+                out = run()
+                self.eval_s.append(time.perf_counter() - t0)
+                return out
+            return timed
+
+        def save_ckpt(self, epoch=None, cursor=0):
+            t0 = time.perf_counter()
+            super().save_ckpt(epoch=epoch, cursor=cursor)
+            self.saves.append((self.step, time.perf_counter() - t0))
+
+        def check(self, epoch=None, cursor=0):
+            n = len(self.eval_s)
+            super().check(epoch=epoch, cursor=cursor)
+            self.checks.append((self.step, self.eval_s[n:]))
+
+        def step_periods(self):
+            """Host-clock ms from one train step's call to the next's, for
+            the steps with no check between them: each covers the step,
+            its loss read (a log line every step) and the next batch's
+            wait and upload."""
+            checked = {s for s, _ in self.checks}
+            return [(self.entries[s + 1] - self.entries[s]) * 1e3
+                    for s in sorted(self.entries)
+                    if s + 1 in self.entries and s + 1 not in checked]
+
+    return Recorded
+
+
+def run_in_process(what, fn):
+    """``fn()`` with its standard output and error kept (and shown), the
+    launch counters set to 0 just before it and read just after. → (its
+    result, its output, the counts, its host-clock seconds)."""
+    import torch
+
+    tee, tee_err = Tee(sys.stdout), Tee(sys.stderr)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee), contextlib.redirect_stderr(tee_err):
+        result = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    out = tee.buf.getvalue()
+    check_clean(out + tee_err.buf.getvalue(), what)
+    return result, out, counts, wall
+
+
+def check_runner_counts(r, counts, what):
+    """The launches of a Runner's run: each train step K1 ×2, K1-bwd ×2,
+    K2 ×1 and each eval batch K1 ×3, K2 ×2, all through the staged
+    kernels. → (train steps, eval batches)."""
+    steps, n_eval = len(r.entries), r.n_eval
+    want = {k: TRAIN_KERNELS[k] * steps + SERVE_KERNELS[k] * n_eval
+            for k in TRAIN_KERNELS}
+    check(counts == want and counts["roi_align_backward"] == 2 * steps,
+          f"runner {what}: launches {counts}, want {want} ({steps} steps, "
+          f"{n_eval} eval batches)")
+    return steps, n_eval
+
+
+def print_checks(r, mgr, what):
+    """Each check's save (host clock; its bytes when the step is still
+    kept) and eval passes, in the order they ran. Every check saves once."""
+    check(len(r.saves) == len(r.checks),
+          f"runner {what}: {len(r.saves)} saves, {len(r.checks)} checks")
+    kept, seen = set(mgr.all_steps()), set()
+    for (s, evs), (_, secs) in zip(r.checks, r.saves):
+        note = ("skipped: step already saved, sidecar written" if s in seen
+                else f"{ckpt_bytes(mgr, s)[0]} bytes" if s in kept
+                else "evicted")
+        seen.add(s)
+        print(f"runner {what} check at step {s}: save {secs * 1e3:.3f} ms "
+              f"({note}), eval {', '.join(f'{e:.3f} s' for e in evs)} (host "
+              f"clock)", flush=True)
+
+
+def phase_runner(dev, gpu, work, raw, engine_step_ms):
+    """The run loop as a user drives it, at the full width of
+    ``configs/fgn_train_mnistiseg_n3k3.py`` (R50-C4, GN, deep stem,
+    avg-down, N3K3, bf16, b8 Adagrad) on the split ``phase_engine``
+    generated (``raw``), from a derived config file (data roots, work_dir,
+    2 epochs, a check every 5 steps, a log line every step):
+
+      * run A, ``python -m fgn_torch.main <cfg>`` with ``FGN_MAX_RSS_GB``
+        below the process's RSS: exits 42 at the first check (step 5),
+        leaving a checkpoint at step 5 (epoch 0, cursor 5, the sidecar's
+        order epoch 0's);
+      * run B, ``fgn_torch.main.main(cfg)`` in this process with the launch
+        counters set to 0 just before and read just after: resumes at step
+        5, ends at step 2 x steps_per_epoch, finite metrics at every check
+        and in the fresh pass, K1 x2, K1-bwd x2, K2 x1 a step and K1 x3, K2
+        x2 an eval batch. Its checks at steps 10 and 20 fall on an epoch's
+        last step: the mid-epoch save stands and the end-of-epoch save is
+        skipped, as in the JAX package, so the last checkpoint records
+        (epoch 1, cursor 10);
+      * run C, ``fgn_torch.main_ft.run_grid(<derived fgn_ft_mnistiseg.py>,
+        gammas=(0.1,), nks=((3, 3),))`` in this process from run B's
+        checkpoints, counted as run B: initializes from step 20, trains one
+        epoch at b4 Adam with two FT=Use evaluators at b4, writes FT_DONE;
+        its first train batch and first eval batch then go through one
+        more train step and one more forward, not counted, whose K1, K1-bwd
+        and K2 calls are held against the plain versions (``ft-train``,
+        ``ft-eval`` lines); ``python -m fgn_torch.main_ft`` on the same
+        file then skips the cell.
+
+    → (the launch counts of run B, those of run C)."""
+    import os
+    from unittest import mock
+
+    import torch
+
+    import fgn_torch
+    from fgn_torch import main as main_mod
+    from fgn_torch import main_ft
+    from fgn_torch.config import Config
+    from fgn_torch.data.fst_bindings import init_ds_class_by_config
+    from fgn_torch.train.checkpoints import CheckpointManager
+
+    configs = os.path.join(os.path.dirname(fgn_torch.__file__), "configs")
+    d = os.path.join(work, "runner")
+    os.makedirs(d)
+    roots = dict(inner_root=raw, root=os.path.join(d, "fst"))
+    stage1 = os.path.join(d, "stage1")
+    cfg_fp = write_config(
+        os.path.join(d, "train_cfg.py"),
+        os.path.join(configs, "fgn_train_mnistiseg_n3k3.py"),
+        dict(train_ds_cfg=roots, eval_ds_cfg0=roots, work_dir=stage1,
+             max_epochs=2, eval_interval_iters=5, log_interval=1))
+    cfg = Config.from_file(cfg_fp)
+    mcfg = main_mod.model_config_from_cfg(cfg)
+    want = dict(backbone_norm="gn", deep_stem=True, avg_down=True,
+                feat_channels=1024, n_ways=3, k_shots=3,
+                compute_dtype="bfloat16")
+    check(all(getattr(mcfg, k) == v for k, v in want.items())
+          and cfg.optimizer.type == "adagrad" and int(cfg.batch_size) == 8,
+          f"runner: config's model {mcfg} is not {want} at b8 adagrad")
+    train = init_ds_class_by_config(cfg.train_ds_cfg)
+    bs = int(cfg.batch_size)
+    spe = len(train) // bs
+    train.reshuffle(0)
+    order0 = train.state_dict()["order"]
+
+    # run A: killed by its RSS limit at the first check
+    out_a = run_cli("A", ["fgn_torch.main", cfg_fp], 42,
+                    env=dict(os.environ, FGN_MAX_RSS_GB="0.05"))
+    check("planned restart at step 5" in out_a,
+          "runner A: no planned restart at step 5")
+    mgr = CheckpointManager(stage1)
+    check(mgr.all_steps() == [5], f"runner A: checkpoints {mgr.all_steps()}")
+    _, st = mgr.restore(5)
+    extra = st["extra"]
+    check(extra["epoch"] == 0 and extra["cursor"] == 5
+          and list(extra["ds_state"]["order"]) == list(order0),
+          f"runner A: step 5's extra {extra['epoch'], extra['cursor']}, "
+          f"sidecar order epoch 0's: "
+          f"{list(extra['ds_state']['order']) == list(order0)}")
+    check_metrics(eval_metrics(out_a), "A", 4)
+    nbytes, side = ckpt_bytes(mgr, 5)
+    print(f"runner A: checkpoint at step 5 holds {nbytes} bytes (model + "
+          f"optimizer + extra; sidecar {side} bytes); epoch 0, cursor 5, "
+          f"sidecar order epoch 0's", flush=True)
+    del st
+
+    # run B: the resume, in this process, counted
+    runners = []
+    Recorded = recording_runner(runners)
+    with mock.patch.object(main_mod, "Runner", Recorded):
+        model, out_b, counts, wall = run_in_process(
+            "B", lambda: main_mod.main(Config.from_file(cfg_fp)))
+    (r,) = runners
+    check(r.device.type == "cuda" and next(model.parameters()).is_cuda,
+          f"runner B: ran on {r.device}")
+    steps, n_eval = check_runner_counts(r, counts, "B")
+    print(f"runner B: fgn_torch.main.main(cfg) in process, resumed and ran "
+          f"{steps} steps, {len(r.checks)} checks and the fresh pass "
+          f"({n_eval} eval batches) in {wall:.3f} s (host clock); "
+          f"tensorboardX {'live' if r.tb is not None else 'absent'}",
+          flush=True)
+    check("Resumed from step 5 (epoch 0, cursor 5)" in out_b,
+          "runner B: no 'Resumed from step 5 (epoch 0, cursor 5)'")
+    check(r.step == 2 * spe and steps == 2 * spe - 5,
+          f"runner B: ran {steps} steps to step {r.step}, want to "
+          f"{2 * spe}")
+    mgr = CheckpointManager(stage1)
+    last = mgr.latest_step()
+    _, st = mgr.restore(last)
+    # the check at step 2 * spe saved first (epoch 1, cursor spe); the
+    # end-of-epoch save at that step was skipped
+    check(last == 2 * spe and st["extra"]["epoch"] == 1
+          and st["extra"]["cursor"] == spe,
+          f"runner B: last checkpoint {last}, extra {st['extra']['epoch']}, "
+          f"{st['extra']['cursor']}")
+    del st
+    found = eval_metrics(out_b)
+    want_at = [s for s, _ in r.checks] + ["fresh"]
+    check([w for w, _ in found] == want_at,
+          f"runner B: metrics printed at {[w for w, _ in found]}, checks at "
+          f"{want_at}")
+    check_metrics(found, "B", 4)
+    print_checks(r, mgr, "B")
+    periods = r.step_periods()
+    print(f"runner B: a step, host clock, from one train step's call to the "
+          f"next's (the loss read synchronizes every step), {len(periods)} "
+          f"steps with no check between: {[round(v, 3) for v in periods]}; "
+          f"median {statistics.median(periods):.3f} ms against "
+          f"phase_engine's {engine_step_ms:.3f} ms from the wait for a "
+          f"loader batch to the synchronized step (host clock); launches "
+          f"{counts}; on {gpu}", flush=True)
+    print(f"runner B: metrics at every check and the fresh pass: "
+          f"{[(w, {k.split('/')[1]: round(v, 4) for k, v in m.items()}) for w, m in found]}",
+          flush=True)
+    del model, r
+    runners.clear()
+    torch.cuda.empty_cache()
+
+    # run C: the finetune grid from run B's checkpoints, in this process
+    ft_roots = dict(roots, root=os.path.join(d, "ft_fst"))
+    ft_fp = write_config(
+        os.path.join(d, "ft_cfg.py"),
+        os.path.join(configs, "fgn_ft_mnistiseg.py"),
+        dict(ft_ds_cfg0=ft_roots, ft_ds_cfg1=ft_roots, eval_ds_cfg0=ft_roots,
+             eval_ds_cfg1=ft_roots, work_dir=os.path.join(d, "ft"),
+             init_from=stage1, max_epochs=1))
+    with mock.patch.object(main_mod, "Runner", Recorded):
+        _, out_c, counts_c, wall = run_in_process(
+            "C", lambda: main_ft.run_grid(ft_fp, gammas=(0.1,),
+                                          nks=((3, 3),)))
+    (r,) = runners
+    check(r.device.type == "cuda", f"runner C: ran on {r.device}")
+    check(r.batch_size == 4 and r.optimizer.kind == "adam"
+          and len(r.evaluators) == 2
+          and all(ev.batch_size == 4 and ev.ds.finetune == "Use"
+                  for ev in r.evaluators),
+          "runner C: not b4 Adam with two FT=Use evaluators at b4")
+    steps_c, n_eval_c = check_runner_counts(r, counts_c, "C")
+    check(f"Initialized from stage-1 checkpoint at step {2 * spe}" in out_c,
+          f"runner C: not initialized from step {2 * spe}")
+    cell = os.path.join(d, "ft", "N3K3_G0.1")
+    check(os.path.isfile(os.path.join(cell, "FT_DONE")),
+          f"runner C: no FT_DONE in {cell}")
+    found = eval_metrics(out_c)
+    want_at = [s for s, _ in r.checks for _ in r.evaluators] + [
+        "fresh"] * len(r.evaluators)
+    check([w for w, _ in found] == want_at,
+          f"runner C: metrics printed at {[w for w, _ in found]}, want "
+          f"{want_at}")
+    check_metrics(found, "C", 4)
+    ft = CheckpointManager(cell)
+    check(ft.latest_step() == r.step == steps_c,
+          f"runner C: last checkpoint {ft.latest_step()}, {r.step} steps")
+    print_checks(r, ft, "C")
+    print(f"runner C: fgn_torch.main_ft.run_grid in process, initialized from "
+          f"step {2 * spe}, finetuned {steps_c} steps at b4 Adam, "
+          f"{len(r.checks)} checks and the fresh passes ({n_eval_c} eval "
+          f"batches of two FT=Use evaluators at b4) in {wall:.3f} s (host "
+          f"clock); launches {counts_c}; metrics "
+          f"{[(w, {k.split('/')[1]: round(v, 4) for k, v in m.items()}) for w, m in found]}",
+          flush=True)
+    # the cell's kernel calls, held against the plain versions: one more
+    # b4 Adam train step on its first batch and one more forward on its
+    # first FT=Use eval batch, neither counted
+    gen = torch.Generator(device=dev).manual_seed(0)
+    fwd_calls, bwd_calls, nms_calls = capture_train_calls(
+        r.raw_step, r.first["train"], gen)
+    check(len(fwd_calls) == 2 and len(bwd_calls) == 2 and len(nms_calls) == 1
+          and fwd_calls[1][0][0].shape[0] == 4,
+          f"runner C: ft-train calls {len(fwd_calls)}, {len(bwd_calls)}, "
+          f"{len(nms_calls)}")
+    for i, (a, k) in enumerate(fwd_calls):
+        k1_record("ft-train", i, a, k)
+    kernel_records(nms_calls, where="ft-train")
+    backward_record(bwd_calls, where="ft-train")
+    eval_calls = capture_kernel_calls(r.model, r.first["eval"])
+    check([n for n, _, _ in eval_calls].count("roi_align") == 3
+          and [n for n, _, _ in eval_calls].count("nms_keep") == 2,
+          f"runner C: ft-eval calls {[n for n, _, _ in eval_calls]}")
+    kernel_records(eval_calls, where="ft-eval")
+    del r, fwd_calls, bwd_calls, nms_calls, eval_calls
+    runners.clear()
+    torch.cuda.empty_cache()
+
+    args = ["fgn_torch.main_ft", ft_fp, "--gammas", "0.1", "--nks", "3x3"]
+    out_c2 = run_cli("C again", args, 0)
+    check(f"Skipping completed {cell}" in out_c2
+          and "=== FT grid cell" not in out_c2
+          and "Initialized from" not in out_c2,
+          "runner C again: the completed cell was not skipped")
+    return counts, counts_c
+
+
 def cv2_line():
     """``cv2: <version>|absent``: whether this machine has OpenCV, which the
     JAX package's episode engine needs."""
@@ -1891,8 +2330,8 @@ def main(argv=None):
     from fgn_torch.data.digests import CONFIG
 
     with tempfile.TemporaryDirectory() as work:
-        cfg, mcfg, val, engine_counts, (fwd_calls, bwd_calls, nms_calls) = (
-            phase_engine(dev, gpu, work))
+        (cfg, mcfg, val, engine_counts, (fwd_calls, bwd_calls, nms_calls),
+         raw, engine_step_ms) = phase_engine(dev, gpu, work)
         for i, (a, k) in enumerate(fwd_calls):
             k1_record("engine-train", i, a, k)
         kernel_records(nms_calls, where="engine-train")
@@ -1901,6 +2340,12 @@ def main(argv=None):
         torch.cuda.empty_cache()
         eval_counts, eval_calls = phase_eval(dev, gpu, val, mcfg,
                                              B=int(cfg.eval_batch_size))
+        torch.cuda.empty_cache()
+        t_runner = time.perf_counter()
+        runner_counts, ft_counts = phase_runner(dev, gpu, work, raw,
+                                                engine_step_ms)
+        print(f"phase_runner: {time.perf_counter() - t_runner:.1f} s",
+              flush=True)
     # The kernels line reads this slice's paths, each kernel all its numbers
     # from one: K1 and K2 from eval pass 1 (launches) and its first batch's
     # calls (error, times, bound), K1-bwd from the timed train steps on
@@ -1914,14 +2359,18 @@ def main(argv=None):
     recs["roi_align_backward"] = dict(
         bwd, launches=engine_counts["roi_align_backward"],
         path="engine train steps, " + CONFIG)
+    for name in ("roi_align", "roi_align_backward", "nms_keep"):
+        recs[name]["launches_runner"] = runner_counts[name]
+        recs[name]["launches_finetune"] = ft_counts[name]
     print(f"phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = []
     for rec in (recs["roi_align"], recs["roi_align_backward"], recs["nms_keep"]):
         kernels.append({k: rec[k] for k in (
             "name", "route", "source", "replaces", "path", "launches",
-            "max_abs_err", "ms", "earlier_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")})
+            "launches_runner", "launches_finetune", "max_abs_err", "ms",
+            "earlier_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")})
     print(gpu_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -76,7 +76,7 @@ def _paste_batch_packed(mask_logits: torch.Tensor, boxes: torch.Tensor,
     return (bits * weights).sum(-1, dtype=torch.uint8)
 
 
-class _Staging:
+class Staging:
     """Two sets of pinned host buffers for the copies of two batches in
     flight. ``take`` hands them out in turns and waits on the CUDA event of
     a set's last copy before handing it out again."""
@@ -101,6 +101,22 @@ class _Staging:
                 for t in like]
         self._slots[i] = (bufs, torch.cuda.Event())
         return self._slots[i]
+
+
+def upload_batch(batch: EpisodeBatch, device: torch.device,
+                 staging: Optional[Staging]) -> EpisodeBatch:
+    """The numpy batch as tensors on ``device``: on CUDA through the pinned
+    buffers of ``staging`` with asynchronous copies; on the CPU (``staging``
+    None) tensors that share the numpy arrays' memory."""
+    src = from_numpy(**batch._asdict())
+    if staging is None:
+        return src
+    bufs, event = staging.take(src)
+    for buf, t in zip(bufs, src):
+        buf.copy_(t)
+    out = EpisodeBatch(*(b.to(device, non_blocking=True) for b in bufs))
+    event.record()
+    return out
 
 
 class Evaluator:
@@ -188,8 +204,8 @@ class Evaluator:
         """One eval pass → {tag: metric} (bbox and segm mAP and mAR)."""
         device = next(self.model.parameters()).device
         cuda = device.type == "cuda"
-        in_staging = _Staging() if cuda else None
-        out_staging = _Staging() if cuda else None
+        in_staging = Staging() if cuda else None
+        out_staging = Staging() if cuda else None
 
         caching = False
         if self._episode_cache is not None:
@@ -302,7 +318,7 @@ class Evaluator:
                 accum.append((batch, meta))
             sync = 1 <= n_batches <= 3  # skip batch 0 (warm-up)
             t0 = time.monotonic()
-            out = self.eval_step(self._upload(batch, device, in_staging))
+            out = self.eval_step(upload_batch(batch, device, in_staging))
             if sync:
                 if cuda:
                     torch.cuda.synchronize(device)
@@ -370,22 +386,7 @@ class Evaluator:
         return metrics
 
     @staticmethod
-    def _upload(batch: EpisodeBatch, device: torch.device,
-                staging: Optional[_Staging]) -> EpisodeBatch:
-        """The numpy batch as tensors on ``device``: on CUDA through pinned
-        buffers with asynchronous copies."""
-        src = from_numpy(**batch._asdict())
-        if staging is None:
-            return src
-        bufs, event = staging.take(src)
-        for buf, t in zip(bufs, src):
-            buf.copy_(t)
-        out = EpisodeBatch(*(b.to(device, non_blocking=True) for b in bufs))
-        event.record()
-        return out
-
-    @staticmethod
-    def _fetch(out: Dict[str, torch.Tensor], staging: Optional[_Staging]):
+    def _fetch(out: Dict[str, torch.Tensor], staging: Optional[Staging]):
         """→ (the outputs on the host, the event to wait on before reading
         them; None on the CPU)."""
         if staging is None:
