@@ -44,7 +44,17 @@ the kernels with launch counters:
     in this process (counted: K1 x2, K1-bwd x2, K2 x1 a step, K1 x3, K2 x2
     an eval batch) to the end of its second epoch with metrics at every
     check, and the finetune grid's cell from its last checkpoint, run
-    twice (the second skips the completed cell).
+    twice (the second skips the completed cell);
+  * data parallelism on the one card (``phase_dp``; ranks are processes):
+    2 ranks over gloo check each collective on CUDA tensors, train the
+    flagship at a global b12 (b6 a rank) with their launches counted (K1
+    x2, K1-bwd x2, K2 x1 a step) and rank 0's kernel calls held against
+    the plain versions, and run an f32 twin against 1 rank at b4 within the
+    JAX package's data-parallel tolerances; 1 rank over NCCL steps bit for
+    bit as the step without a mesh; ``python -m fgn_torch.parallel.dryrun
+    --ranks 2 --backend gloo``; ``torchrun --nproc_per_node 2 -m
+    fgn_torch.main`` trains the generated split for an epoch, and its
+    checkpoint scored by 2 ranks gives the metrics and pickles of 1 rank.
 
 With ``--profile`` it also prints where the device time of one flagship
 forward and of one train step goes (torch.profiler), K1's staged kernel
@@ -54,7 +64,8 @@ cluster size.
 
 Prints its measurements on earlier lines; the line before the last is one
 JSON object of the kernels, each with every number from one path (its
-``path``: K1 and K2 from evaluation, K1-bwd from the engine's training);
+``path``: K1 and K2 from evaluation, K1-bwd from the engine's training;
+``launches_dp``: each rank's launches in ``phase_dp``'s flagship run);
 the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero. Without a CUDA device, or without the fgn_torch package
@@ -2206,15 +2217,452 @@ def phase_runner(dev, gpu, work, raw, engine_step_ms):
     return counts, counts_c
 
 
+# -- data parallelism ------------------------------------------------------------
+#
+# The ranks of phase_dp are processes started by
+# fgn_torch.parallel.dryrun.spawn_ranks; each imports this script for its body
+# (below), so the launch counters it reads are its own.
+
+# the flagship trainer's global batch (b6 a rank at 2 ranks)
+DP_GLOBAL_B = 12
+
+
+def dp_collectives(mesh):
+    """Each collective the data-parallel path uses, straight through
+    torch.distributed on CUDA tensors of this rank's device: all_reduce SUM
+    and MAX, broadcast, all_gather, barrier, broadcast_object_list. →
+    their names."""
+    import torch
+    import torch.distributed as dist
+
+    dev, r, W = mesh.device, mesh.rank, mesh.world_size
+    x = torch.full((7,), float(r + 1), device=dev)
+    dist.all_reduce(x, dist.ReduceOp.SUM)
+    check(bool((x == W * (W + 1) / 2).all()) and x.is_cuda,
+          f"dp: gloo all_reduce SUM on CUDA gave {x.tolist()}")
+    x = torch.full((7,), float(r + 1), device=dev, dtype=torch.float64)
+    dist.all_reduce(x, dist.ReduceOp.MAX)
+    check(bool((x == W).all()), f"dp: gloo all_reduce MAX gave {x.tolist()}")
+    x = torch.full((3, 2), float(r + 5), device=dev)
+    dist.broadcast(x, src=0)
+    check(bool((x == 5).all()), f"dp: gloo broadcast gave {x.tolist()}")
+    x = torch.full((2, 3), float(r), device=dev)
+    parts = [torch.empty_like(x) for _ in range(W)]
+    dist.all_gather(parts, x)
+    check(all(bool((p == i).all()) for i, p in enumerate(parts)),
+          "dp: gloo all_gather out of rank order")
+    dist.barrier()
+    box = [{"rank": r}]
+    dist.broadcast_object_list(box, src=0)
+    check(box[0] == {"rank": 0}, f"dp: broadcast_object_list gave {box}")
+    return ["all_reduce SUM", "all_reduce MAX", "broadcast", "all_gather",
+            "barrier", "broadcast_object_list"]
+
+
+def dp_flagship(mesh, warmup=2, iters=3):
+    """The flagship trainer data-parallel: R50-C4, N3K3, 480 px, bf16, Adam,
+    the global b12 batch's rows of this rank (b6 at 2 ranks). Each step runs
+    with the launch counters set to 0 just before it and read just after;
+    the gradient all-reduce is timed on the host clock with the card
+    synchronized around it. Then one more step, uncounted, whose kernel
+    calls rank 0 holds against the plain versions. → this rank's
+    readings."""
+    from unittest import mock
+
+    import torch
+
+    import fgn_torch.train.train_step as ts
+    from fgn_torch.data.batching import toy_batch
+    from fgn_torch.models.fgn import build_model
+    from fgn_torch.parallel.mesh import (
+        all_gather_rows, barrier, replicate, shard_batch,
+    )
+    from fgn_torch.train.optim import build_optimizer, make_lr_schedule
+
+    dev = mesh.device
+    model = replicate(build_model(flagship_cfg(), dev, seed=0), mesh)
+    opt = build_optimizer(model, optimizer="adam",
+                          schedule=make_lr_schedule(5e-3, steps_per_epoch=1000))
+    step = ts.make_train_step(model, opt, mesh)
+    batch = shard_batch(toy_batch(B=DP_GLOBAL_B, H=480, W=480, N=3, K=3,
+                                  S=128), mesh)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    reduce_ms = []
+    real_sum = ts.sum_gradients
+
+    def timed_sum(params, m, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_sum(params, m, *a, **k)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+
+    n_bytes = sum(p.numel() * p.element_size()
+                  for p in ts._updated_params(opt))
+    counts, ms, wall = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(ts, "sum_gradients", timed_sum):
+        for i in range(warmup + iters):
+            barrier(mesh)
+            torch.cuda.synchronize()
+            zero_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            metrics = step(batch, gen)
+            end.record()
+            end.synchronize()
+            t1 = time.perf_counter()
+            counts.append(read_counts())
+            bad = [k for k, v in metrics.items()
+                   if k.startswith("loss_") and not bool(torch.isfinite(v))]
+            check(not bad, f"dp flagship rank {mesh.rank}: non-finite {bad}")
+            if i >= warmup:
+                ms.append(start.elapsed_time(end))
+                wall.append((t1 - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    for c in counts:
+        check(c == TRAIN_KERNELS, f"dp flagship rank {mesh.rank}: launches "
+                                  f"{c} a step, want {TRAIN_KERNELS}")
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    every = all_gather_rows(flat[None], mesh)
+    check(all(torch.equal(every[0], e) for e in every),
+          "dp flagship: the ranks' parameters differ after the steps")
+    del every, flat
+    fwd_calls, bwd_calls, nms_calls = capture_train_calls(step, batch, gen)
+    recs = None
+    if mesh.is_main:
+        b = DP_GLOBAL_B // mesh.world_size
+        shapes = (sorted(tuple(a[0].shape) + (a[1].shape[1],)
+                         for a, _ in fwd_calls),
+                  sorted(tuple(a[0].shape) for a, _ in bwd_calls),
+                  [tuple(a[0].shape) for _, a, _ in nms_calls])
+        check(shapes == (
+            sorted([(b * 9, 8, 8, 1024, 1), (b, 30, 30, 1024, 128)]),
+            sorted([(b * 9, 1, 7, 7, 1024), (b, 128, 7, 7, 1024)]),
+            [(b, 4096, 4)]), f"dp flagship: rank 0's kernel calls {shapes}")
+        recs = [k1_record("dp-train", i, a, k, iters=5)
+                for i, (a, k) in enumerate(fwd_calls)]
+        recs.append(backward_record(bwd_calls, iters=5, where="dp-train"))
+        recs.extend(kernel_records(nms_calls, iters=5,
+                                   where="dp-train").values())
+        for rec in recs:
+            rec.pop("_args", None)
+            rec.pop("_size", None)
+    del fwd_calls, bwd_calls, nms_calls
+    barrier(mesh)
+    total = {k: sum(c[k] for c in counts) for k in counts[0]}
+    return dict(counts=counts[-1], launches=total, ms=ms, wall=wall,
+                reduce_ms=reduce_ms[warmup:], reduce_bytes=n_bytes,
+                n_params=sum(p.numel() for p in model.parameters()),
+                peak=peak, recs=recs)
+
+
+def dp_twin_spec():
+    """The f32 twin's inputs: the flagship's width in f32, seeded weights,
+    SGD at make_lr_schedule(5e-3, steps_per_epoch=100, warmup_iters=1) as
+    tests/test_dp_equivalence.py steps it, 2 steps on a global b4 batch
+    drawing from the generator seeded 100 + step."""
+    from fgn_torch.data.batching import toy_batch
+
+    fields = {k: v.numpy() for k, v in toy_batch(
+        B=4, H=480, W=480, N=3, K=3, S=128)._asdict().items()}
+    return dict(
+        cfg=dict(n_ways=3, k_shots=3, backbone_norm="gn",
+                 backbone_frozen=False, compute_dtype="float32"),
+        optimizer=dict(optimizer="sgd", base_lr=5e-3, schedule=dict(
+            base_lr=5e-3, steps_per_epoch=100, warmup_iters=1)),
+        steps=[dict(fields=fields, seed=100 + i) for i in range(2)],
+        keep={"grads": [0], "params": [1]})
+
+
+def dp_twin(mesh, spec):
+    """``dryrun.train_rank`` with TF32 off and deterministic cuDNN."""
+    from fgn_torch.parallel.dryrun import train_rank
+
+    with strict_f32():
+        return train_rank(mesh, spec)
+
+
+def dp_gloo_rank(mesh, twin_spec):
+    """Rank body of the 2-rank start over gloo on one card: the
+    collectives, the flagship trainer, the f32 twin."""
+    return dict(collectives=dp_collectives(mesh), flagship=dp_flagship(mesh),
+                twin=dp_twin(mesh, twin_spec))
+
+
+def dp_nccl_rank(mesh):
+    """One rank over NCCL: a b12 bf16 Adam step of the flagship through the
+    data-parallel step (its collectives run: a 1-rank group) and through
+    the step without a mesh, from the same weights, batch and generator
+    seed, with cuDNN and PyTorch's deterministic algorithms: every
+    parameter and metric equal bit for bit. → the parameters compared."""
+    import os
+
+    import torch
+
+    from fgn_torch.data.batching import to_device, toy_batch
+    from fgn_torch.models.fgn import build_model
+    from fgn_torch.train.optim import build_optimizer, make_lr_schedule
+    from fgn_torch.train.train_step import make_train_step
+
+    check(mesh.backend == "nccl" and mesh.group is not None
+          and mesh.world_size == 1, f"dp nccl: mesh {mesh}")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dev = mesh.device
+    batch = to_device(toy_batch(B=DP_GLOBAL_B, H=480, W=480, N=3, K=3,
+                                S=128), dev)
+
+    def run(m):
+        model = build_model(flagship_cfg(), dev, seed=0)
+        opt = build_optimizer(
+            model, optimizer="adam",
+            schedule=make_lr_schedule(5e-3, steps_per_epoch=1000))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        metrics = make_train_step(model, opt, m)(batch, gen)
+        torch.cuda.synchronize()
+        return ({k: v.detach().clone() for k, v in metrics.items()},
+                [p.detach().clone() for p in model.parameters()])
+
+    (ma, pa), (mb, pb) = run(None), run(mesh)
+    same_m = ma.keys() == mb.keys() and all(torch.equal(ma[k], mb[k])
+                                            for k in ma)
+    same_p = sum(not torch.equal(a, b) for a, b in zip(pa, pb))
+    if not (same_m and same_p == 0):
+        ma2, pa2 = run(None)
+        print(f"dp nccl: the step without a mesh, twice: "
+              f"{sum(not torch.equal(a, b) for a, b in zip(pa, pa2))} "
+              f"parameters differ", flush=True)
+    check(same_m and same_p == 0,
+          f"dp nccl: the 1-rank NCCL step differs from the step without a "
+          f"mesh: metrics equal {same_m}, {same_p} of {len(pa)} parameters "
+          f"differ")
+    return len(pa)
+
+
+def dp_eval_rank(mesh, spec):
+    """One ``Evaluator`` pass over the eval split of ``spec["cfg"]`` with the
+    weights of the latest checkpoint in ``spec["ckpt"]``, at the global
+    batch ``spec["batch"]``, Python's and numpy's generators seeded 0, the
+    launch counters set to 0 just before and read just after. → (metrics,
+    the results pickles {name: bytes} on rank 0, launches, batches)."""
+    import os
+    import random
+
+    import numpy as np
+    import torch
+
+    from fgn_torch.config import Config
+    from fgn_torch.data.fst_bindings import init_ds_class_by_config
+    from fgn_torch.main import model_config_from_cfg
+    from fgn_torch.models.fgn import build_model
+    from fgn_torch.parallel.mesh import rank0_first
+    from fgn_torch.train.checkpoints import CheckpointManager
+    from fgn_torch.train.evaluator import Evaluator
+    from fgn_torch.train.train_step import make_eval_step
+
+    cfg = Config.from_file(spec["cfg"])
+    mcfg = model_config_from_cfg(cfg)
+    model = build_model(mcfg, mesh.device, seed=0)
+    _, state = CheckpointManager(spec["ckpt"]).load_model(
+        map_location=mesh.device)
+    model.load_state_dict(state)
+    ds = rank0_first(lambda: init_ds_class_by_config(cfg.eval_ds_cfg0), mesh)
+    ev = Evaluator(model, ds, batch_size=spec["batch"],
+                   eval_step=make_eval_step(model, mesh),
+                   work_dir=spec["work"], max_gt=int(cfg.get("max_gt", 30)),
+                   mask_thr=mcfg.mask_thr, n_plots=0, mesh=mesh)
+    random.seed(0)
+    np.random.seed(0)
+    torch.cuda.synchronize()
+    zero_counts()
+    metrics = ev.run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    pkl = None
+    if mesh.is_main:
+        d = ev.results_dir()
+        pkl = {}
+        for name in sorted(os.listdir(d)):
+            with open(os.path.join(d, name), "rb") as f:
+                pkl[name] = f.read()
+    return metrics, pkl, counts, ev.last_times["batches"]
+
+
+def leaf_close(got, want, rel, atol):
+    """→ (all within, the worst |diff| / tolerance) over the leaves: each
+    within rel × its largest |want| + atol."""
+    import numpy as np
+
+    worst = 0.0
+    for name, w in want.items():
+        tol = rel * float(np.abs(w).max()) + atol
+        d = float(np.abs(got[name].astype(np.float64) - w).max())
+        worst = max(worst, d / tol)
+    return worst <= 1.0, worst
+
+
+def phase_dp(dev, gpu, work, raw):
+    """Data parallelism on the one card (module docstring): 2 ranks over
+    gloo (the collectives, the flagship trainer at b12 = b6 a rank with its
+    launches counted and rank 0's kernel calls held, the f32 twin against 1
+    rank at b4), 1 rank over NCCL bit for bit, ``python -m
+    fgn_torch.parallel.dryrun --ranks 2 --backend gloo``, and ``torchrun
+    --nproc_per_node 2 -m fgn_torch.main`` over the split ``phase_engine``
+    generated, whose checkpoint a 2-rank eval pass then scores as a 1-rank
+    pass does. → each kernel's launches in each rank of the flagship run."""
+    import os
+
+    import fgn_torch
+    from fgn_torch.parallel.dryrun import spawn_ranks
+    from fgn_torch.parallel.mesh import Mesh
+    from fgn_torch.train.checkpoints import CheckpointManager
+
+    t_phase = time.perf_counter()
+    note = ("2 ranks share the one card: each rank's time holds the other's "
+            "work, and the all-reduce is gloo's, staged through host memory")
+    twin_spec = dp_twin_spec()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(dp_gloo_rank, 2, (twin_spec,), backend="gloo",
+                        device="cuda", timeout=420, threads=3)
+    print(f"dp: 2 ranks over gloo on {dev} in {time.perf_counter() - t0:.1f}"
+          f" s (host clock, process starts included); collectives on CUDA "
+          f"tensors: {', '.join(ranks[0]['collectives'])}: held", flush=True)
+    for r, res in enumerate(ranks):
+        f = res["flagship"]
+        print(f"dp flagship rank {r}: b{DP_GLOBAL_B // 2} of a global "
+              f"b{DP_GLOBAL_B} bf16 adam 480x480 N3K3: step "
+              f"{[round(v, 3) for v in f['ms']]} ms by CUDA events, "
+              f"{[round(v, 3) for v in f['wall']]} ms host clock; gradient "
+              f"all-reduce {[round(v, 3) for v in f['reduce_ms']]} ms a step "
+              f"for {f['reduce_bytes']} bytes ({f['n_params']} f32 "
+              f"parameters); peak memory {f['peak'] / 2**30:.2f} GiB "
+              f"(torch.cuda.max_memory_allocated); launches a step "
+              f"{f['counts']}; {note}; on {gpu}", flush=True)
+    wall = [max(a, b) for a, b in zip(ranks[0]["flagship"]["wall"],
+                                       ranks[1]["flagship"]["wall"])]
+    print(f"dp flagship: the step's wall time across ranks (host clock, from "
+          f"a barrier to the later rank's synchronized end) "
+          f"{[round(v, 3) for v in wall]} ms, median "
+          f"{statistics.median(wall):.3f} ms; {note}; on {gpu}", flush=True)
+
+    # the f32 twin: 2 ranks x b2 against 1 rank x b4
+    with strict_f32():
+        from fgn_torch.parallel.dryrun import train_rank
+
+        one = train_rank(Mesh(device=dev), twin_spec)
+    r0, r1 = (res["twin"] for res in ranks)
+    for i, want in enumerate(one):
+        check(r0[i]["digest"] == r1[i]["digest"],
+              f"dp twin: the ranks' parameters differ after step {i}")
+        for k in ("loss_total",):
+            check(abs(r0[i]["metrics"][k] - want["metrics"][k])
+                  <= 1e-6 * abs(want["metrics"][k]),
+                  f"dp twin step {i}: {k} {r0[i]['metrics'][k]} against "
+                  f"{want['metrics'][k]}")
+    ok_g, worst_g = leaf_close(r0[0]["grads"], one[0]["grads"], 4e-3, 1e-7)
+    ok_p, worst_p = leaf_close(r0[1]["params"], one[1]["params"], 1e-4, 1e-5)
+    print(f"dp twin f32 (TF32 off, deterministic cuDNN): 2 ranks x b2 "
+          f"against 1 rank x b4, SGD: loss_total "
+          f"{[r['metrics']['loss_total'] for r in r0]} against "
+          f"{[r['metrics']['loss_total'] for r in one]}; gradients at "
+          f"{worst_g:.3g} of their tolerance (4e-3 of each leaf's largest "
+          f"+ 1e-7), parameters after 2 steps at {worst_p:.3g} of theirs "
+          f"(1e-4 of each leaf's largest + 1e-5); the ranks' parameters "
+          f"identical after every step", flush=True)
+    check(ok_g and ok_p, f"dp twin: gradients {worst_g:.3g}, parameters "
+                         f"{worst_p:.3g} of their tolerances")
+    launches = [res["flagship"]["launches"] for res in ranks]
+    recs = ranks[0]["flagship"]["recs"]
+    del ranks, r0, r1, one
+
+    # one rank over NCCL
+    t0 = time.perf_counter()
+    (n,) = spawn_ranks(dp_nccl_rank, 1, backend="nccl", device="cuda",
+                       timeout=300, threads=4)
+    print(f"dp nccl: 1 rank over NCCL, a b{DP_GLOBAL_B} bf16 adam step "
+          f"through the data-parallel step equal bit for bit to the step "
+          f"without a mesh ({n} parameters and every metric) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    out = run_cli("dp dryrun", ["fgn_torch.parallel.dryrun", "--ranks", "2",
+                                "--backend", "gloo"], 0, timeout=300)
+    line = out.strip().splitlines()[-1] if out.strip() else ""
+    check(line.startswith("dryrun_multichip(2): steps=2 ")
+          and line.endswith("OK"), f"dp dryrun: printed {line!r}")
+    print(f"dp dryrun | {line}", flush=True)
+
+    # torchrun over the engine's split
+    configs = os.path.join(os.path.dirname(fgn_torch.__file__), "configs")
+    d = os.path.join(work, "dp")
+    os.makedirs(d)
+    roots = dict(inner_root=raw, root=os.path.join(d, "fst"))
+    run_dir = os.path.join(d, "run")
+    cfg_fp = write_config(
+        os.path.join(d, "dp_cfg.py"),
+        os.path.join(configs, "fgn_train_mnistiseg_n3k3.py"),
+        dict(train_ds_cfg=roots, eval_ds_cfg0=roots, work_dir=run_dir,
+             max_epochs=1, log_interval=1))
+    out = run_cli("dp torchrun", [
+        "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+        "-m", "fgn_torch.main", cfg_fp, "--backend", "gloo"], 0, timeout=600)
+    mgr = CheckpointManager(run_dir)
+    steps = out.count(" loss=")
+    found = eval_metrics(out)
+    check(out.count("ckpt scheduled at step") == 1
+          and mgr.all_steps() == [steps] and steps > 0,
+          f"dp torchrun: {out.count('ckpt scheduled at step')} saves "
+          f"printed, checkpoints {mgr.all_steps()}, {steps} steps logged")
+    check([w for w, _ in found] == [steps, "fresh"],
+          f"dp torchrun: metrics printed at {[w for w, _ in found]}")
+    check_metrics(found, "dp torchrun", 4)
+    print(f"dp torchrun: torchrun --nproc_per_node 2 -m fgn_torch.main "
+          f"--backend gloo: {steps} steps at a global b8, one check, its "
+          f"checkpoint written once (rank 0), metrics printed once a pass "
+          f"(rank 0): {found}", flush=True)
+
+    # its checkpoint scored by 2 ranks and by 1
+    spec = dict(cfg=cfg_fp, ckpt=run_dir, work=os.path.join(d, "eval2"),
+                batch=8)
+    (m2, pkl2, c0, nb), (_, _, c1, _) = spawn_ranks(
+        dp_eval_rank, 2, (spec,), backend="gloo", device="cuda", timeout=300,
+        threads=3)
+    m1, pkl1, _, _ = dp_eval_rank(Mesh(device=dev), dict(
+        spec, work=os.path.join(d, "eval1"), batch=4))
+    want = {k: SERVE_KERNELS[k] * nb for k in SERVE_KERNELS}
+    check(c0 == want and c1 == want,
+          f"dp eval: launches {c0}, {c1}, want {want} ({nb} batches)")
+    check(m2 == m1 and pkl2 == pkl1 and pkl1,
+          f"dp eval: 2 ranks {m2} against 1 rank {m1}; pickles equal "
+          f"{pkl2 == pkl1}")
+    print(f"dp eval: the torchrun checkpoint over the eval split, 2 ranks at "
+          f"a global b8 (b4 a rank) against 1 rank at b4: metrics and "
+          f"{len(pkl1)} results pickles equal byte for byte; {nb} batches, "
+          f"launches a rank {c0}; metrics {m1}", flush=True)
+    print(f"phase_dp: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, recs
+
+
 def cv2_line():
-    """``cv2: <version>|absent``: whether this machine has OpenCV, which the
-    JAX package's episode engine needs."""
+    """``cv2: <version>|absent; grain: present|absent``: whether this
+    machine has OpenCV, which the episode engine needs, and grain, whose
+    absence sends ``GrainEpisodeLoader`` to its fork pool."""
     import importlib
 
     try:
-        return f"cv2: {importlib.import_module('cv2').__version__}"
+        cv2 = f"cv2: {importlib.import_module('cv2').__version__}"
     except ImportError:
-        return "cv2: absent"
+        cv2 = "cv2: absent"
+    try:
+        importlib.import_module("grain.python")
+        return cv2 + "; grain: present"
+    except ImportError:
+        return cv2 + "; grain: absent"
 
 
 def main(argv=None):
@@ -2346,6 +2794,8 @@ def main(argv=None):
                                                 engine_step_ms)
         print(f"phase_runner: {time.perf_counter() - t_runner:.1f} s",
               flush=True)
+        torch.cuda.empty_cache()
+        dp_counts, _ = phase_dp(dev, gpu, work, raw)
     # The kernels line reads this slice's paths, each kernel all its numbers
     # from one: K1 and K2 from eval pass 1 (launches) and its first batch's
     # calls (error, times, bound), K1-bwd from the timed train steps on
@@ -2362,13 +2812,15 @@ def main(argv=None):
     for name in ("roi_align", "roi_align_backward", "nms_keep"):
         recs[name]["launches_runner"] = runner_counts[name]
         recs[name]["launches_finetune"] = ft_counts[name]
+        recs[name]["launches_dp"] = [c[name] for c in dp_counts]
     print(f"phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = []
     for rec in (recs["roi_align"], recs["roi_align_backward"], recs["nms_keep"]):
         kernels.append({k: rec[k] for k in (
             "name", "route", "source", "replaces", "path", "launches",
-            "launches_runner", "launches_finetune", "max_abs_err", "ms",
+            "launches_runner", "launches_finetune", "launches_dp",
+            "max_abs_err", "ms",
             "earlier_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")})
     print(gpu_line())

@@ -11,9 +11,17 @@ configs are kept (reference main.py:396-400).
 Everything runs on ``cuda`` unless the caller passes ``device="cpu"`` (or
 ``--device cpu``); without a GPU the default raises.
 
+Under ``torchrun`` each process is one rank of a data-parallel run
+(``parallel/mesh.py``): the config's batch sizes are the global batches,
+each rank steps its rows, rank 0 logs, writes checkpoints and scores the
+evals. NCCL needs a card for each rank; ranks that share a card run over
+gloo only when asked to (``--backend gloo``).
+
 Usage:
     python -m fgn_torch.main fgn_torch/configs/fgn_train_mnistiseg_n1k1.py \
         [--device cpu]
+    torchrun --nproc_per_node W -m fgn_torch.main <config> \
+        [--backend gloo] [--device cpu]
 """
 
 from __future__ import annotations
@@ -47,6 +55,9 @@ if os.environ.get("FGN_STACK_DUMP_S"):
 from fgn_torch.config import Config, FGNConfig
 from fgn_torch.data.fst_bindings import init_ds_class_by_config
 from fgn_torch.models.fgn import build_model
+from fgn_torch.parallel.mesh import (
+    Mesh, close, make_mesh, rank0_first, replicate,
+)
 from fgn_torch.train.checkpoints import CheckpointManager
 from fgn_torch.train.evaluator import Evaluator
 from fgn_torch.train.loop import Runner
@@ -120,7 +131,8 @@ def optimizer_from_cfg(cfg: Config, model: torch.nn.Module,
     )
 
 
-def init_from_checkpoint(model: torch.nn.Module, work_dir: str) -> int:
+def init_from_checkpoint(model: torch.nn.Module, work_dir: str,
+                         verbose: bool = True) -> int:
     """Load the weights of the latest checkpoint of the run in ``work_dir``
     into ``model`` (on its device); → that checkpoint's step. Only the
     weights are read: the stage-1 run's optimizer and dataset state belong
@@ -136,7 +148,8 @@ def init_from_checkpoint(model: torch.nn.Module, work_dir: str) -> int:
         )
     step, state = loaded
     model.load_state_dict(state)
-    print(f"Initialized from stage-1 checkpoint at step {step}")
+    if verbose:
+        print(f"Initialized from stage-1 checkpoint at step {step}")
     return step
 
 
@@ -150,19 +163,34 @@ def _device(device) -> torch.device:
     return device
 
 
-def main(cfg: Config, device="cuda"):
-    device = _device(device)
+def main(cfg: Config, device="cuda", mesh: Optional[Mesh] = None,
+         backend: Optional[str] = None):
+    """Train (or finetune) from ``cfg``. ``mesh`` is this rank's place in a
+    data-parallel run; without one, ``make_mesh(backend, device)`` makes it
+    (one rank without ``torchrun``)."""
+    if mesh is None:
+        _device(device)
+        mesh = make_mesh(backend=backend, device=device)
+    device = mesh.device
     mcfg = model_config_from_cfg(cfg)
 
     # --- datasets -------------------------------------------------------
     is_ft = "ft_ds_cfg0" in cfg
-    if is_ft:
-        ds0 = init_ds_class_by_config(cfg.ft_ds_cfg0)
-        ds1 = init_ds_class_by_config(cfg.ft_ds_cfg1)
-        ds0.merge_ds(ds1)
-        train_ds = ds0
-    else:
-        train_ds = init_ds_class_by_config(cfg.train_ds_cfg)
+
+    def datasets():
+        if is_ft:
+            ds0 = init_ds_class_by_config(cfg.ft_ds_cfg0)
+            ds1 = init_ds_class_by_config(cfg.ft_ds_cfg1)
+            ds0.merge_ds(ds1)
+            train_ds = ds0
+        else:
+            train_ds = init_ds_class_by_config(cfg.train_ds_cfg)
+        eval_dss = [init_ds_class_by_config(cfg[key]) for key in sorted(cfg)
+                    if re.fullmatch(r"eval_ds_cfg\d+", key)]
+        return train_ds, eval_dss
+
+    # rank 0 builds the datasets' disk caches, the other ranks read them
+    train_ds, eval_dss = rank0_first(datasets, mesh)
 
     # N/K consistency (reference main.py:396-400)
     assert train_ds.n_ways == mcfg.n_ways
@@ -188,29 +216,30 @@ def main(cfg: Config, device="cuda"):
     steps_per_epoch = max(len(train_ds) // batch_size, 1)
     optimizer = optimizer_from_cfg(cfg, model, steps_per_epoch)
     schedule, cum_iters = optimizer.schedule, optimizer.cumulative_iters
-    train_step = make_train_step(model, optimizer)
-    eval_step = make_eval_step(model)
+    train_step = make_train_step(model, optimizer, mesh)
+    eval_step = make_eval_step(model, mesh)
 
     # --- eval hooks (key scan like reference main.py:453-475) ------------
-    evaluators: List[Evaluator] = []
-    for key in sorted(cfg):
-        if re.fullmatch(r"eval_ds_cfg\d+", key):
-            eval_ds = init_ds_class_by_config(cfg[key])
-            evaluators.append(
-                Evaluator(
-                    model, eval_ds,
-                    batch_size=int(cfg.get("eval_batch_size", 4)),
-                    eval_step=eval_step,
-                    work_dir=str(cfg.work_dir),
-                    max_gt=max_gt,
-                    mask_thr=mcfg.mask_thr,
-                    cache_episodes=bool(cfg.get("eval_cache_episodes", True)),
-                )
-            )
+    evaluators: List[Evaluator] = [
+        Evaluator(
+            model, eval_ds,
+            batch_size=int(cfg.get("eval_batch_size", 4)),
+            eval_step=eval_step,
+            work_dir=str(cfg.work_dir),
+            max_gt=max_gt,
+            mask_thr=mcfg.mask_thr,
+            cache_episodes=bool(cfg.get("eval_cache_episodes", True)),
+            mesh=mesh,
+        )
+        for eval_ds in eval_dss
+    ]
 
     # --- stage-1 checkpoint for FT (reference main_ft.py:104-109) --------
     if is_ft and cfg.get("init_from"):
-        init_from_checkpoint(model, str(cfg.init_from))
+        init_from_checkpoint(model, str(cfg.init_from), verbose=mesh.is_main)
+    # every rank's weights are rank 0's (each built them from the same
+    # seed and files; the broadcast makes it so whatever the init did)
+    replicate(model, mesh)
 
     runner = Runner(
         model, optimizer, train_step, train_ds,
@@ -237,6 +266,7 @@ def main(cfg: Config, device="cuda"):
             "model": dict(cfg.model),
             "batch_size": batch_size,
         },
+        mesh=mesh,
     )
     runner.resume()
     return runner.run()
@@ -248,9 +278,18 @@ def _parse_cli(argv: Optional[List[str]] = None):
     ap.add_argument("config", help="config file (fgn_torch/configs/*.py)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu to run on the CPU)")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="process-group backend under torchrun (default: "
+                         "nccl with a card for each rank, gloo on the CPU; "
+                         "gloo to run ranks on a shared card)")
     return ap.parse_args(argv)
 
 
 if __name__ == "__main__":
     args = _parse_cli()
-    main(Config.from_file(args.config), device=args.device)
+    _device(args.device)
+    mesh = make_mesh(backend=args.backend, device=args.device)
+    try:
+        main(Config.from_file(args.config), mesh=mesh)
+    finally:
+        close()

@@ -24,6 +24,12 @@ Hand-written CUDA kernels carry both paths on the card:
     ``train_forward`` (RPN proposals).
 
 On CPU tensors the wrappers use their plain versions.
+
+Under data parallelism (``train_forward(..., mesh=)``) each rank runs its
+rows of the global batch, and every loss divides by counts summed over the
+ranks (``parallel/mesh.py::global_sum``), as the JAX step's denominators
+are taken over the whole global batch: a rank's loss is its share of the
+global loss. The diagnostics are the global batch's too.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from fgn_torch.ops.nms_cuda import greedy_alive_cuda
 from fgn_torch.ops.roi_align import roi_align
 from fgn_torch.ops.roi_align_cuda import roi_align_cuda
 from fgn_torch.ops.sample import random_sample_pos_neg
+from fgn_torch.parallel.mesh import Mesh, global_sum, rank_draws
 
 # float64 serves the parity tests: gradients of this network in float32
 # differ from the exact ones by up to a few percent of a leaf's largest
@@ -325,13 +332,14 @@ class FGN(nn.Module):
 
     # -- training -------------------------------------------------------------
 
-    def _rpn_loss(self, cls, reg, batch, u):
+    def _rpn_loss(self, cls, reg, batch, u, mesh=None):
         """Per-(image, way) anchor losses / N, against each way's gt.
 
         cls (B,N,h,w,A), reg (B,N,h,w,A,4), u (B,N,2,M) the sampler's draws.
         As in the JAX module (a documented deviation from the reference):
         the sum over all (image, way) pairs is divided by the global
-        sampled count, then by N."""
+        sampled count, then by N. The diagnostics are means over the global
+        batch."""
         c = self.cfg
         B, N, h, w, A = cls.shape
         M = h * w * A
@@ -366,18 +374,24 @@ class FGN(nn.Module):
         deltas = torch.gather(reg_flat, 2, idx4)
         pos = s.is_pos & s.valid
         bw = pos.to(torch.float32)[..., None]
-        total = lw.sum().clamp(min=1.0)
+        # diagnostics: sampled pos/neg counts per way, inside-image anchors
+        n_pos = pos.sum(dim=-1).to(torch.float32)  # (B, N)
+        n_neg = (~s.is_pos & s.valid).sum(dim=-1).to(torch.float32)
+        n_inside = inside.sum(dim=-1).to(torch.float32)
+        # one reduction: the sampled count, then the diagnostics' sums
+        sums = global_sum(torch.cat([
+            lw.sum()[None], n_pos.sum(dim=0), n_neg.sum(dim=0),
+            n_inside.sum()[None]]), mesh)
+        total = sums[0].clamp(min=1.0)
         losses = {
             "loss_rpn_cls": sigmoid_bce(logits, labels, lw, 1.0) / total / N,
             "loss_rpn_bbox": smooth_l1(deltas, targets, bw, 1.0) / total / N,
         }
-        # diagnostics: sampled pos/neg counts per way, inside-image anchors
-        n_pos = pos.sum(dim=-1).to(torch.float32)  # (B, N)
-        n_neg = (~s.is_pos & s.valid).sum(dim=-1).to(torch.float32)
+        b_all = B * (1 if mesh is None else mesh.world_size)
         for n in range(N):
-            losses[f"rpn_log_pos_way{n}"] = n_pos[:, n].mean()
-            losses[f"rpn_log_neg_way{n}"] = n_neg[:, n].mean()
-        losses["rpn_log_valid_anchors"] = inside.sum(dim=-1).to(torch.float32).mean()
+            losses[f"rpn_log_pos_way{n}"] = sums[1 + n] / b_all
+            losses[f"rpn_log_neg_way{n}"] = sums[1 + N + n] / b_all
+        losses["rpn_log_valid_anchors"] = sums[1 + 2 * N] / b_all
         return losses
 
     def _sample_rois(self, batch, props, prop_valid, u):
@@ -416,21 +430,25 @@ class FGN(nn.Module):
 
     def train_forward(self, batch: EpisodeBatch,
                       generator: Optional[torch.Generator] = None,
-                      draws: Optional[Draws] = None) -> Dict[str, torch.Tensor]:
+                      draws: Optional[Draws] = None,
+                      mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
         """Losses (``loss_*``) and diagnostics of one episode batch.
 
         The samplers' uniform draws come from ``draws`` when given (see
         ``Draws``), else from ``torch.rand`` with ``generator``, a generator
-        on the model's device."""
+        on the model's device. With ``mesh``, ``batch`` is this rank's rows
+        of the global batch: the draws from ``generator`` are made at the
+        global batch's shapes and this rank keeps its rows (``draws``, when
+        given, are this rank's rows already); every loss is this rank's
+        share of the global batch's loss, every diagnostic the global
+        batch's."""
         c = self.cfg
         dev = self.rpn_conv.weight.device
         batch = to_device(batch, dev)
         if draws is None:
             if generator is None:
                 raise ValueError("train_forward: pass a generator or draws")
-
-            def draws(name, shape):
-                return torch.rand(shape, generator=generator, device=dev)
+            draws = rank_draws(generator, dev, mesh)
 
         B = batch.qry_img.shape[0]
         N = c.n_ways
@@ -439,7 +457,7 @@ class FGN(nn.Module):
         rpn_cls, rpn_reg = self._rpn_forward(qry_fmap, spp_fmaps)
         h, w, A = rpn_cls.shape[2:]
         losses = self._rpn_loss(rpn_cls, rpn_reg, batch,
-                                draws("rpn", (B, N, 2, h * w * A)))
+                                draws("rpn", (B, N, 2, h * w * A)), mesh)
 
         # Proposals are inputs to the second stage, not a gradient path.
         with torch.no_grad():
@@ -464,15 +482,19 @@ class FGN(nn.Module):
         lw = is_valid.to(torch.float32).reshape(B * R)
         flat_cls = cls_final.reshape(B * R, N + 1)
         flat_labels = labels.reshape(B * R)
+        n_valid = global_sum(lw.sum(), mesh)
         losses["loss_cls"] = softmax_ce(flat_cls, flat_labels, lw,
-                                        lw.sum().clamp(min=1.0))
+                                        n_valid.clamp(min=1.0))
         way = labels.clamp(0, N - 1).long()
         pred_deltas = torch.gather(
             reg_ways, 2, way[:, :, None, None].expand(-1, -1, 1, 4))[:, :, 0]
         targets = delta_encode(rois, tgt_boxes, stds=c.rcnn_bbox_stds)
         bw = is_pos.to(torch.float32)[..., None]
-        losses["loss_bbox"] = smooth_l1(pred_deltas, targets, bw, float(B * R))
-        acc, bal = accuracy_balanced(flat_cls, flat_labels, lw, N + 1)
+        b_all = B * (1 if mesh is None else mesh.world_size)
+        losses["loss_bbox"] = smooth_l1(pred_deltas, targets, bw,
+                                        float(b_all * R))
+        acc, bal = accuracy_balanced(flat_cls, flat_labels, lw, N + 1,
+                                     reduce=lambda t: global_sum(t, mesh))
         losses["acc"] = acc
         losses["acc_balanced"] = bal
 
@@ -500,7 +522,7 @@ class FGN(nn.Module):
             sel = gt_idx[:, :P_max, None, None, None].expand(-1, -1, m, m, 1)
             tgt = (torch.gather(aligned, -1, sel)[..., 0] >= 0.5).to(torch.float32)
         pos_m = is_pos[:, :P_max].to(torch.float32)
-        n_pos_px = pos_m.sum().clamp(min=1.0) * (m * m)
+        n_pos_px = global_sum(pos_m.sum(), mesh).clamp(min=1.0) * (m * m)
         losses["loss_mask"] = sigmoid_bce(mask_logits, tgt,
                                           pos_m[..., None, None], n_pos_px)
         return losses

@@ -48,17 +48,24 @@ def smooth_l1(pred, target, weights, avg_factor, beta: float = 1.0):
     return (per * weights).sum() / _avg(avg_factor)
 
 
-def accuracy_balanced(logits, labels, weights, n_classes: int):
+def accuracy_balanced(logits, labels, weights, n_classes: int, reduce=None):
     """(plain accuracy, balanced accuracy) over weighted samples: balanced
     accuracy is the mean per-class recall over the classes that appear
-    among the valid labels."""
+    among the valid labels. ``reduce`` sums a tensor over the ranks of a
+    data-parallel step (``parallel/mesh.py::global_sum``): the counts are
+    then the global batch's, and so are both accuracies."""
     valid = (weights > 0).to(torch.float32)
     correct = (logits.argmax(dim=-1) == labels).to(torch.float32) * valid
-    acc = correct.sum() / valid.sum().clamp(min=1.0)
     onehot = F.one_hot(labels.long(), n_classes).to(torch.float32) * valid[..., None]
     dims = tuple(range(onehot.dim() - 1))
-    per_class_total = onehot.sum(dim=dims)
-    per_class_correct = (onehot * correct[..., None]).sum(dim=dims)
+    sums = torch.cat([correct.sum()[None], valid.sum()[None],
+                      onehot.sum(dim=dims),
+                      (onehot * correct[..., None]).sum(dim=dims)])
+    if reduce is not None:
+        sums = reduce(sums)
+    acc = sums[0] / sums[1].clamp(min=1.0)
+    per_class_total = sums[2:2 + n_classes]
+    per_class_correct = sums[2 + n_classes:]
     present = per_class_total > 0
     recall = per_class_correct / per_class_total.clamp(min=1.0)
     bal = (torch.where(present, recall, torch.zeros_like(recall)).sum()

@@ -26,6 +26,12 @@ not ported: it reads orbax's ``_METADATA`` of checkpoints this package
 never writes.
 
 Saving is synchronous: ``wait`` and ``close`` have nothing to wait for.
+
+Data-parallel (a ``mesh`` with a process group): every rank holds the same
+state, rank 0 alone writes each step and its sidecar, and every rank waits
+at a barrier until it is in place; a resume reads the same step on every
+rank, onto each rank's device. The ranks share the work directory's file
+system.
 """
 
 from __future__ import annotations
@@ -38,6 +44,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from fgn_torch.parallel.mesh import Mesh, barrier
+
 
 def _ds_state_to_jsonable(ds_state: Dict) -> Dict:
     """order (int array) + group_hw ({pos: (h, w)}) -> pure JSON types."""
@@ -64,13 +73,17 @@ def _ds_state_from_jsonable(blob: Dict) -> Dict:
 
 
 class CheckpointManager:
-    def __init__(self, work_dir: str, max_keep: int = 3):
+    def __init__(self, work_dir: str, max_keep: int = 3,
+                 mesh: Optional[Mesh] = None):
         self.dir = os.path.abspath(os.path.join(work_dir, "checkpoints"))
         self.max_keep = int(max_keep)
+        self.mesh = mesh
+        self.writer = mesh is None or mesh.is_main
         os.makedirs(self.dir, exist_ok=True)
-        # a save cut by a kill leaves only its temporary directory
-        for path in glob.glob(os.path.join(self.dir, ".tmp-*")):
-            shutil.rmtree(path, ignore_errors=True)
+        if self.writer:
+            # a save cut by a kill leaves only its temporary directory
+            for path in glob.glob(os.path.join(self.dir, ".tmp-*")):
+                shutil.rmtree(path, ignore_errors=True)
 
     # -- ds_state sidecar ---------------------------------------------------
 
@@ -127,7 +140,16 @@ class CheckpointManager:
         ``extra`` (JSON types; its ``ds_state`` goes to the sidecar). A
         step no later than the latest saved one is skipped, as orbax skips
         it; its sidecar is written all the same, as the JAX package's
-        manager writes it."""
+        manager writes it. Under a mesh rank 0 writes and every rank returns
+        once the files are in place."""
+        try:
+            if self.writer:
+                self._save(step, model_state, optimizer_state, extra)
+        finally:
+            barrier(self.mesh)
+
+    def _save(self, step: int, model_state: Dict, optimizer_state: Dict,
+              extra: Optional[Dict[str, Any]]):
         extra = dict(extra or {})
         ds_state = extra.pop("ds_state", None)
         step = int(step)

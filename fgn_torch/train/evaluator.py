@@ -24,6 +24,15 @@ event completes, or refilled while its copy is in flight, gives wrong
 numbers silently, so each is one of two and is reused only after the event
 of its last copy. On the CPU nothing is pinned: the batch tensors share the
 numpy arrays' memory.
+
+Data-parallel (``mesh`` with a process group): every rank builds every
+episode, in the one-rank order (``FewShotISEG.__getitem__`` draws from
+Python's global ``random`` in sequence, so a rank that built only its rows
+would draw other episodes), and uploads only its rows of each batch
+(``shard_batch``); the eval step gathers the detections back into the
+global batch on every rank. The host work (paste, RLE, the pickles, the
+renders, FSISEGEval) runs once, on rank 0, and its metrics are broadcast to
+every rank.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ from fgn_torch.data.batching import EpisodeBatch, EpisodeLoader, from_numpy
 from fgn_torch.data.fsisegeval import FSISEGEval
 from fgn_torch.ops.boxes import xyxy_to_yxyx
 from fgn_torch.ops.mask_paste import paste_masks, paste_masks_np
+from fgn_torch.parallel.mesh import Mesh, broadcast_object, shard_batch
 from fgn_torch.train.train_step import unpack_eval_out_np
 from fgn_torch.utils.io import create_empty_dir_unsafe, read_pkl, write_pkl_unsafe
 
@@ -140,8 +150,10 @@ class Evaluator:
         tag: Optional[str] = None,
         n_plots: int = 5,
         cache_episodes: bool = True,
+        mesh: Optional[Mesh] = None,
     ):
         self.model = model
+        self.mesh = mesh
         self.ds = ds
         self.batch_size = batch_size
         self.eval_step = eval_step
@@ -201,11 +213,13 @@ class Evaluator:
         )
 
     def run(self) -> Dict[str, float]:
-        """One eval pass → {tag: metric} (bbox and segm mAP and mAR)."""
+        """One eval pass → {tag: metric} (bbox and segm mAP and mAR), on
+        every rank of a mesh."""
         device = next(self.model.parameters()).device
         cuda = device.type == "cuda"
+        main = self.mesh is None or self.mesh.is_main
         in_staging = Staging() if cuda else None
-        out_staging = Staging() if cuda else None
+        out_staging = Staging() if cuda and main else None
 
         caching = False
         if self._episode_cache is not None:
@@ -226,7 +240,8 @@ class Evaluator:
         # the metas it keys on are kept alive by the accumulated cache.
         self._reuse_gt_rle = caching or loader is self._episode_cache
         results_dir = self.results_dir()
-        create_empty_dir_unsafe(results_dir)
+        if main:
+            create_empty_dir_unsafe(results_dir)
 
         results: List[dict] = []
         n_flushed = 0
@@ -308,6 +323,23 @@ class Evaluator:
                     flush()
             t_host += time.monotonic() - t0
 
+        grouped = self.mesh is not None and self.mesh.group is not None
+        failure = None
+
+        def host_work(pending):
+            """``process(pending)``. Under a mesh rank 0 keeps a failure and
+            goes on stepping with the other ranks (each step is a
+            collective); every rank raises it at the pass's end."""
+            nonlocal failure
+            if failure is not None:
+                return
+            try:
+                process(pending)
+            except Exception:
+                if not grouped:
+                    raise
+                failure = traceback.format_exc()
+
         # Double-buffered loop: batch i's host work overlaps batch i+1's
         # device work (the step's launches return before the card is done).
         pending = None
@@ -318,7 +350,12 @@ class Evaluator:
                 accum.append((batch, meta))
             sync = 1 <= n_batches <= 3  # skip batch 0 (warm-up)
             t0 = time.monotonic()
-            out = self.eval_step(upload_batch(batch, device, in_staging))
+            out = self.eval_step(
+                shard_batch(batch, self.mesh, device, in_staging))
+            n_batches += 1
+            if not main:  # rank 0 holds the same gathered outputs
+                del out
+                continue
             if sync:
                 if cuda:
                     torch.cuda.synchronize(device)
@@ -333,16 +370,20 @@ class Evaluator:
                     event.synchronize()
                 dbg["fetch"] += time.monotonic() - t0
             del out
-            n_batches += 1
             if pending is not None:
-                process(pending)
+                host_work(pending)
             pending = (host, event, batch, meta)
         if pending is not None:
-            process(pending)
+            host_work(pending)
+        if failure is not None:
+            return self._broadcast_metrics(failure)
         flush()
         if caching:
             self._episode_cache = accum
         t_loop = time.monotonic() - t_wall
+        if not main:
+            self.last_times = {"batches": n_batches, "loop": t_loop}
+            return self._broadcast_metrics(None)
 
         # Render a few episodes (gt | detections), like the reference's
         # 5-episode replot during evaluate (base_fst.py:1547-1577).
@@ -360,16 +401,12 @@ class Evaluator:
                       f"{traceback.format_exc()}", flush=True)
 
         t0 = time.monotonic()
-        metrics: Dict[str, float] = {}
-        for iou_type, short in (("bbox", "bbox"), ("segm", "isegm")):
-            ev = FSISEGEval(
-                results_pkl_dir_fp=results_dir,
-                n_ways=self.ds.n_ways,
-                iou_type=iou_type,
-            )
-            out_m = ev.run()
-            metrics[f"{self.tag}/{short}_mAP_{self.cats_suffix}"] = out_m["mAP"]
-            metrics[f"{self.tag}/{short}_mAR_{self.cats_suffix}"] = out_m["mAR"]
+        try:
+            metrics = self._score(results_dir)
+        except Exception:
+            if grouped:
+                self._broadcast_metrics(traceback.format_exc())
+            raise
         t_eval = time.monotonic() - t0
         self.last_times = {
             "batches": n_batches, "loop": t_loop, "fetch": t_fetch,
@@ -383,6 +420,30 @@ class Evaluator:
             f"sync x3: step {dbg['step']:.2f}s fetch {dbg['fetch']:.2f}s), "
             f"FSISEGEval {t_eval:.1f}s", flush=True,
         )
+        return self._broadcast_metrics(metrics)
+
+    def _score(self, results_dir: str) -> Dict[str, float]:
+        """FSISEGEval over the pickles of ``results_dir``: bbox and segm
+        mAP and mAR under the reference's tags."""
+        metrics: Dict[str, float] = {}
+        for iou_type, short in (("bbox", "bbox"), ("segm", "isegm")):
+            ev = FSISEGEval(
+                results_pkl_dir_fp=results_dir,
+                n_ways=self.ds.n_ways,
+                iou_type=iou_type,
+            )
+            out_m = ev.run()
+            metrics[f"{self.tag}/{short}_mAP_{self.cats_suffix}"] = out_m["mAP"]
+            metrics[f"{self.tag}/{short}_mAR_{self.cats_suffix}"] = out_m["mAR"]
+        return metrics
+
+    def _broadcast_metrics(self, metrics):
+        """Rank 0's metrics on every rank; a failure on rank 0 (its
+        traceback's text in place of the metrics) raises on every rank."""
+        metrics = broadcast_object(metrics, self.mesh)
+        if isinstance(metrics, str):
+            raise RuntimeError(f"eval [{self.tag}] failed on rank 0:\n"
+                               f"{metrics}")
         return metrics
 
     @staticmethod

@@ -30,6 +30,18 @@ draws of step 0 nor differs from another restart at the same step. On CUDA
 each batch goes to the device through pinned buffers with asynchronous
 copies (the evaluator's ``Staging``), uploaded while the previous step
 runs.
+
+Data-parallel (a ``mesh`` with a process group, ``train_step`` made with the
+same mesh): ``batch_size`` is the global batch. Every rank builds every
+episode of each global batch in the one-rank loader's order
+(``FewShotISEG.__getitem__`` draws from Python's global ``random`` in
+sequence, so a rank that built only its rows would draw other episodes)
+and uploads only its rows (``shard_batch``); every rank's generator is
+seeded as the one-rank run's and draws at the global batch's shapes
+(``parallel/mesh.py::rank_draws``). ``start_batch`` and the cursor count
+global batches. Rank 0 alone logs, writes tensorboardX events and
+checkpoints; the RSS limit is decided over all ranks at once (the largest
+rank's RSS), and then every rank exits.
 """
 
 from __future__ import annotations
@@ -43,8 +55,9 @@ import numpy as np
 import torch
 
 from fgn_torch.data.batching import EpisodeLoader
+from fgn_torch.parallel.mesh import Mesh, global_max, rank_rows, shard_batch
 from fgn_torch.train.checkpoints import CheckpointManager
-from fgn_torch.train.evaluator import Staging, upload_batch
+from fgn_torch.train.evaluator import Staging
 from fgn_torch.utils.timers import datetime_log_fancy
 
 
@@ -65,6 +78,10 @@ def resume_seed(seed: int, step: int) -> int:
 
 
 class Runner:
+    # one rank unless ``__init__`` is given a mesh
+    mesh: Optional[Mesh] = None
+    is_main = True
+
     def __init__(
         self,
         model: torch.nn.Module,
@@ -83,7 +100,11 @@ class Runner:
         seed: int = 0,
         lr_schedule=None,
         hparams: Optional[Dict] = None,
+        mesh: Optional[Mesh] = None,
     ):
+        rank_rows(batch_size, mesh)  # raises unless the ranks divide it
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.is_main
         self.model = model
         self.optimizer = optimizer
         self.train_step = train_step
@@ -105,16 +126,19 @@ class Runner:
         self.epoch = 0
 
         os.makedirs(work_dir, exist_ok=True)
-        self.ckpt = CheckpointManager(work_dir, max_keep=max_keep_ckpts)
-        try:
-            from tensorboardX import SummaryWriter
+        self.ckpt = CheckpointManager(work_dir, max_keep=max_keep_ckpts,
+                                      mesh=mesh)
+        self.tb = None
+        if self.is_main:
+            try:
+                from tensorboardX import SummaryWriter
 
-            self.tb = SummaryWriter(os.path.join(work_dir, "tb"))
-        except Exception:
-            self.tb = None
-        print("tensorboard: " + (
-            f"tensorboardX live, events in {os.path.join(work_dir, 'tb')}"
-            if self.tb is not None else "tensorboardX absent, no events"))
+                self.tb = SummaryWriter(os.path.join(work_dir, "tb"))
+            except Exception:
+                pass
+            print("tensorboard: " + (
+                f"tensorboardX live, events in {os.path.join(work_dir, 'tb')}"
+                if self.tb is not None else "tensorboardX absent, no events"))
 
         steps_per_epoch = max(len(train_ds) // batch_size, 1)
         # Mid-epoch cadence (reference: main.py:153-177,230-238).
@@ -201,7 +225,9 @@ class Runner:
                     "ds_state": self.train_ds.state_dict(),
                 },
             )
-            print(f"[{datetime_log_fancy()}] ckpt scheduled at step {self.step}")
+            if self.is_main:
+                print(f"[{datetime_log_fancy()}] ckpt scheduled at step "
+                      f"{self.step}")
         except Exception:
             print("WARNING: checkpoint save failed")
             traceback.print_exc()
@@ -213,13 +239,16 @@ class Runner:
             try:
                 # Phase marker: the stall nudger reads this line and
                 # switches to its slow threshold (tools/stall_nudge.py).
-                print(f"[{datetime_log_fancy()}] eval pass starting")
+                if self.is_main:
+                    print(f"[{datetime_log_fancy()}] eval pass starting")
                 t0 = time.monotonic()
                 metrics = ev.run()
                 self._scalar("Time/Evaluation", (time.monotonic() - t0) * 1000)
                 for k, v in metrics.items():
                     self._scalar(k, v)
-                print(f"[{datetime_log_fancy()}] step {self.step} eval:", metrics)
+                if self.is_main:
+                    print(f"[{datetime_log_fancy()}] step {self.step} eval:",
+                          metrics)
             except Exception:
                 print("WARNING: evaluation failed")
                 traceback.print_exc()
@@ -236,13 +265,20 @@ class Runner:
         if limit <= 0:
             return
         rss = _rss_gb()
+        if self.mesh is not None and self.mesh.group is not None:
+            # decided together: a rank that left alone would leave the
+            # others waiting in their next collective
+            rss = float(global_max(torch.tensor([rss], dtype=torch.float64,
+                                                device=self.mesh.device),
+                                   self.mesh).item())
         if rss <= limit:
             return
-        print(
-            f"[{datetime_log_fancy()}] host RSS {rss:.1f} GB > "
-            f"{limit:.0f} GB — planned restart at step {self.step}",
-            flush=True,
-        )
+        if self.is_main:
+            print(
+                f"[{datetime_log_fancy()}] host RSS {rss:.1f} GB > "
+                f"{limit:.0f} GB — planned restart at step {self.step}",
+                flush=True,
+            )
         self.ckpt.wait()
         if self.tb is not None:
             try:
@@ -273,26 +309,28 @@ class Runner:
                 # Safe: run() re-derives order/group_hw via the
                 # epoch-seeded deterministic reshuffle(epoch) anyway.
                 pass
-        print(
-            f"Resumed from step {self.step} "
-            f"(epoch {self.epoch}, cursor {self._start_cursor})"
-        )
+        if self.is_main:
+            print(
+                f"Resumed from step {self.step} "
+                f"(epoch {self.epoch}, cursor {self._start_cursor})"
+            )
         return True
 
     # -- main loop ---------------------------------------------------------
 
     def _device_feed(self, loader) -> Iterator:
-        """The loader's batches as tensors on the model's device. On CUDA
-        each batch is staged in pinned memory and copied asynchronously
-        while the step of the batch before it runs."""
+        """The loader's batches (this rank's rows of them under a mesh) as
+        tensors on the model's device. On CUDA each batch is staged in
+        pinned memory and copied asynchronously while the step of the batch
+        before it runs."""
         if self.device.type != "cuda":
             for batch, meta in loader:
-                yield upload_batch(batch, self.device, None), meta
+                yield shard_batch(batch, self.mesh, self.device), meta
             return
         staging = Staging()
         cur = None
         for batch, meta in loader:
-            nxt = (upload_batch(batch, self.device, staging), meta)
+            nxt = (shard_batch(batch, self.mesh, self.device, staging), meta)
             if cur is not None:
                 yield cur
             cur = nxt
@@ -324,7 +362,7 @@ class Runner:
                 t0 = time.monotonic()
                 metrics = self.train_step(batch, generator=self.generator)
                 steps_since_log += 1
-                if self.step % self.log_interval == 0:
+                if self.is_main and self.step % self.log_interval == 0:
                     metrics = {k: float(v) for k, v in metrics.items()}
                     # TrainStep: the sync window of THIS step (includes
                     # draining any queued launches — an upper bound).
@@ -371,10 +409,11 @@ class Runner:
                 metrics = ev.run_fresh()
                 for k, v in metrics.items():
                     self._scalar(k + "_fresh", v)
-                print(
-                    f"[{datetime_log_fancy()}] final fresh-support eval:",
-                    metrics,
-                )
+                if self.is_main:
+                    print(
+                        f"[{datetime_log_fancy()}] final fresh-support eval:",
+                        metrics,
+                    )
             except Exception:
                 print("WARNING: fresh-support eval failed")
                 traceback.print_exc()
