@@ -45,6 +45,18 @@ the kernels with launch counters:
     an eval batch) to the end of its second epoch with metrics at every
     check, and the finetune grid's cell from its last checkpoint, run
     twice (the second skips the completed cell);
+  * the COCO2VOC family (``phase_cocovoc``): ``python -m
+    fgn_torch.tools.make_synthetic_cocovoc`` writes the COCO/VOC-format
+    stand-in here, held to its structure; stage 1 from
+    ``configs/fgn_train_coco2voc_synth.py`` (800 px, b8 Adam, one epoch and
+    its check) and the finetune cell from ``configs/fgn_ft_coco2voc_synth.py``
+    (b4, the FT=Use evaluator over VOC novel) in this process, counted (K2's
+    unstaged walk once a step: ``rpn_train_nms_pre`` 12288), each kernel held
+    at one more step's calls and K2's unstaged walk timed beside the staged
+    walk; a ``frozen_bn`` checkpoint exported by ``python -m
+    fgn_torch.tools.export_pretrained_pth`` and loaded by 2 steps of
+    ``configs/fgn_train_coco2voc.py``; ``diagnose_detector`` and
+    ``eval_cat_shuffle`` on stage 1's checkpoint;
   * data parallelism on the one card (``phase_dp``; ranks are processes):
     2 ranks over gloo check each collective on CUDA tensors, train the
     flagship at a global b12 (b6 a rank) with their launches counted (K1
@@ -56,6 +68,9 @@ the kernels with launch counters:
     fgn_torch.main`` trains the generated split for an epoch, and its
     checkpoint scored by 2 ranks gives the metrics and pickles of 1 rank.
 
+``--phases a,b`` runs only the phases named (``PHASES``; eval, runner and
+dp bring the engine phase along); the default, and the full check, is all.
+
 With ``--profile`` it also prints where the device time of one flagship
 forward and of one train step goes (torch.profiler), K1's staged kernel
 at other channel tiles and ROI groups than its rules pick, K1-bwd's staged
@@ -65,7 +80,9 @@ cluster size.
 Prints its measurements on earlier lines; the line before the last is one
 JSON object of the kernels, each with every number from one path (its
 ``path``: K1 and K2 from evaluation, K1-bwd from the engine's training;
-``launches_dp``: each rank's launches in ``phase_dp``'s flagship run);
+``launches_dp``: each rank's launches in ``phase_dp``'s flagship run;
+``launches_coco2voc``: each run's launches in ``phase_cocovoc``, K2's
+unstaged walk also apart, and K2's ``coco2voc_unstaged`` record);
 the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero. Without a CUDA device, or without the fgn_torch package
@@ -603,6 +620,12 @@ SERVE_KERNELS = {"roi_align": 3, "roi_align_direct": 0,
 TRAIN_KERNELS = {"roi_align": 2, "roi_align_direct": 0,
                  "roi_align_backward": 2, "roi_align_backward_atomic": 0,
                  "nms_keep": 1, "nms_keep_unstaged": 0}
+# The COCO2VOC configs' train steps: rpn_train_nms_pre=12288 is past the
+# 11,357 candidates whose boxes fit in shared memory, so K2 takes its
+# unstaged walk; with a frozen backbone (configs/fgn_r50_c4_densecl.py) no
+# map needs a gradient and K1-bwd does not launch.
+COCO2VOC_TRAIN_KERNELS = dict(TRAIN_KERNELS, nms_keep=0, nms_keep_unstaged=1)
+DENSECL_TRAIN_KERNELS = dict(COCO2VOC_TRAIN_KERNELS, roi_align_backward=0)
 
 
 def counted_forward(model, batch):
@@ -795,6 +818,20 @@ def k1_sweep(a, k):
           flush=True)
 
 
+def k2_bound(keep, alive):
+    """K2's least time on these inputs, in seconds: (moving its bytes, doing
+    its operations). Bytes: each candidate's box read and its alive and
+    keep flags, 18 bytes. Operations: the least IoUs a greedy walk needs,
+    per image with A alive and K kept, every pair of kept boxes (each must
+    be shown not to suppress the other) and one IoU above the threshold
+    for each suppressed box, at IOU_FLOPS each."""
+    B, Mp = alive.shape
+    n_keep = keep.sum(1).double()
+    n_alive = alive.sum(1).double()
+    pairs = float((n_keep * (n_keep - 1) / 2 + n_alive - n_keep).sum())
+    return B * Mp * (16 + 1 + 1) / HBM_BYTES_S, IOU_FLOPS * pairs / F32_FLOPS_S
+
+
 def kernel_records(calls, iters=20, where="main-path", names=None):
     """Each kernel (of ``names``, all when None) on the inputs the main path
     gave it: held against its plain version, timed beside its plain version,
@@ -843,15 +880,7 @@ def kernel_records(calls, iters=20, where="main-path", names=None):
                   for p in (3, 1, 2)))
             plain_ms = cuda_ms(lambda: _greedy_alive(*a, **k), 3, warmup=1)
             B, Mp = alive.shape
-            # Least work these inputs need, per image with A alive and K
-            # kept: every pair of kept boxes (each must be shown not to
-            # suppress the other), and one IoU above the threshold for
-            # each suppressed box.
-            n_keep = got.sum(1).double()
-            n_alive = alive.sum(1).double()
-            pairs = float((n_keep * (n_keep - 1) / 2 + n_alive - n_keep).sum())
-            nbytes = B * Mp * (16 + 1 + 1)
-            ops = IOU_FLOPS * pairs
+            t_bytes, t_ops = k2_bound(got, alive)
             size = B * Mp
             fits = {g: _max_clusters(boxes.device.index or 0, g, Mp, True)
                     for g in (16, 8, 4, 2)}
@@ -859,7 +888,6 @@ def kernel_records(calls, iters=20, where="main-path", names=None):
                     f"{int(alive.sum())} alive, {int(got.sum())} kept, "
                     f"{_cluster_size(B, Mp, fits.get)} blocks an image (the "
                     f"card holds {fits} clusters of 16/8/4/2)")
-            t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / F32_FLOPS_S
             bound_ms = max(t_bytes, t_ops) * 1e3
             print(f"{name} {where} call {i}: {desc}: err {err:.3g}; walk "
                   f"{ms:.4f} ms ({times[0]:.4f}, {times[3]:.4f}; on the card "
@@ -1601,20 +1629,22 @@ def read_results(ev):
             for r in read_pkl(os.path.join(d, fn))]
 
 
-def eval_pass(ev, step, run, n_episodes, what):
-    """One eval pass with the launch counters set to 0 just before it and
-    read just after; every batch must launch K1 3 and K2 2 times through
-    their staged kernels. → (metrics, counts of the pass)."""
+def eval_pass(ev, step, run, n_episodes, what, counted=True):
+    """One eval pass; every batch must launch K1 3 and K2 2 times through
+    their staged kernels. With ``counted`` the launch counters are set to 0
+    just before it and read just after; without, they are left alone (a
+    pass inside a run whose counts are read at its end). → (metrics, counts
+    of the pass or None)."""
     import torch
 
     step.reset()
     torch.cuda.synchronize()
-    zero_counts()
+    if counted:
+        zero_counts()
     t0 = time.perf_counter()
     metrics = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = read_counts()
     t = ev.last_times
     n_b = t["batches"]
     check(n_b == len(step.counts) == -(-n_episodes // ev.batch_size),
@@ -1622,8 +1652,11 @@ def eval_pass(ev, step, run, n_episodes, what):
     for i, c in enumerate(step.counts):
         check(c == SERVE_KERNELS, f"eval {what} batch {i}: launches {c}, "
                                   f"want {SERVE_KERNELS}")
-    check(counts == {k: v * n_b for k, v in SERVE_KERNELS.items()},
-          f"eval {what}: launches {counts} over {n_b} batches")
+    counts = None
+    if counted:
+        counts = read_counts()
+        check(counts == {k: v * n_b for k, v in SERVE_KERNELS.items()},
+              f"eval {what}: launches {counts} over {n_b} batches")
     for k, v in metrics.items():
         check(0.0 <= v <= 1.0, f"eval {what}: {k} = {v}")
     print(f"eval pass {what}: {n_episodes} episodes, {n_b} batches of "
@@ -1632,7 +1665,8 @@ def eval_pass(ev, step, run, n_episodes, what):
           f"fetch wait {t['fetch']:.3f} s, host paste+RLE {t['host']:.3f} s, "
           f"FSISEGEval {t['eval']:.3f} s, loop {t['loop']:.3f} s; synchronized "
           f"batches 1-3: step {t['sync_step']:.3f} s, fetch "
-          f"{t['sync_fetch']:.3f} s; launches {counts}; metrics "
+          f"{t['sync_fetch']:.3f} s; launches "
+          f"{counts if counted else 'read with the run'}; metrics "
           f"{ {k.split('/')[1]: v for k, v in metrics.items()} }", flush=True)
     return metrics, counts
 
@@ -1818,17 +1852,20 @@ RUNNER_LINE = ("Resumed from", "ckpt scheduled", " eval: ", "planned restart",
                "tensorboard:", "WARNING", "Error", "Traceback")
 
 
-def run_cli(what, args, want_rc, env=None, timeout=600):
-    """``python -m <args>`` from the repo's root in a subprocess; its exit
-    code must be ``want_rc``. Prints the wall time, the exit code and the
-    Runner's log lines. → its standard output."""
+def run_cli(what, args, want_rc, env=None, timeout=600, cwd=None):
+    """``python -m <args>`` in a subprocess, from the repo's root or from
+    ``cwd`` (the repo then on its ``PYTHONPATH``); its exit code must be
+    ``want_rc``. Prints the wall time, the exit code and the Runner's log
+    lines. → its standard output."""
     import os
 
+    repo = os.path.dirname(os.path.abspath(__file__))
+    if cwd is not None:
+        env = dict(env or os.environ, PYTHONPATH=repo)
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m"] + args, cwd=os.path.dirname(
-            os.path.abspath(__file__)), env=env, capture_output=True,
-        text=True, timeout=timeout)
+        [sys.executable, "-m"] + args, cwd=cwd or repo, env=env,
+        capture_output=True, text=True, timeout=timeout)
     wall = time.perf_counter() - t0
     for line in proc.stdout.splitlines():
         if any(k in line for k in RUNNER_LINE):
@@ -1974,14 +2011,15 @@ def run_in_process(what, fn):
     return result, out, counts, wall
 
 
-def check_runner_counts(r, counts, what):
-    """The launches of a Runner's run: each train step K1 ×2, K1-bwd ×2,
-    K2 ×1 and each eval batch K1 ×3, K2 ×2, all through the staged
-    kernels. → (train steps, eval batches)."""
+def check_runner_counts(r, counts, what, train=TRAIN_KERNELS):
+    """The launches of a Runner's run: each train step ``train``'s (K1 ×2,
+    K1-bwd ×2, K2 ×1, all through the staged kernels, by default) and each
+    eval batch K1 ×3, K2 ×2 through the staged kernels. → (train steps, eval
+    batches)."""
     steps, n_eval = len(r.entries), r.n_eval
-    want = {k: TRAIN_KERNELS[k] * steps + SERVE_KERNELS[k] * n_eval
-            for k in TRAIN_KERNELS}
-    check(counts == want and counts["roi_align_backward"] == 2 * steps,
+    want = {k: train[k] * steps + SERVE_KERNELS[k] * n_eval for k in train}
+    check(counts == want
+          and counts["roi_align_backward"] == train["roi_align_backward"] * steps,
           f"runner {what}: launches {counts}, want {want} ({steps} steps, "
           f"{n_eval} eval batches)")
     return steps, n_eval
@@ -2215,6 +2253,646 @@ def phase_runner(dev, gpu, work, raw, engine_step_ms):
           and "Initialized from" not in out_c2,
           "runner C again: the completed cell was not skipped")
     return counts, counts_c
+
+
+# -- the COCO2VOC family -----------------------------------------------------
+
+# The stand-in generated on the card, cut from the tool's defaults (800 /
+# 240 / 150 / 80). A smaller COCO-val set leaves (query, category) children
+# in the stage-1 eval set whose category has no support instance, and an
+# episode drawn on one raises (the JAX package's engine alike): on the CPU's
+# OpenCV at COCO-train 400, every COCO-val size tried from 20 to 140 (20, 30,
+# 40, 50, 60, 70, 80, 90, 100, 120, 140) has 2-9 of them, 160 none; no
+# config key cuts an eval set. ``supportless_children`` checks the card's.
+COCOVOC_SIZES = dict(coco_train=400, coco_val=160, voc_train=40, voc_val=10)
+COCOVOC_SEED = 8
+# K2's largest Mp that stages: the largest multiple of its 128-candidate
+# block whose boxes and areas fit in a walk block's shared memory
+K2_STAGED_MAX_MP = 11264
+
+
+def k2_unstaged_record(where, a, k, iters=20):
+    """K2 at a call whose Mp is past what stages (the COCO2VOC train RPN
+    call): the unstaged walk (which the call must take), held bit for bit
+    against the plain version; the staged walk on the same boxes cut to
+    K2_STAGED_MAX_MP candidates, held too; both timed in turns, unstaged,
+    staged, staged, unstaged, over runs of 10 launches (CUDA events), and
+    on the card alone (``device_ms``), beside the plain version and each
+    one's bound (``k2_bound``). → its record."""
+    import torch
+
+    from fgn_torch.ops.nms import _greedy_alive
+    from fgn_torch.ops.nms_cuda import _staged, greedy_alive_cuda
+
+    boxes, alive, thr = a[0], a[1], a[2]
+    B, Mp = alive.shape
+    got, design = k2_landed(*a, **k)
+    check(design == "unstaged", f"K2 {where}: Mp={Mp} took the {design} walk")
+    ref = _greedy_alive(*a, **k)
+    check(torch.equal(got, ref), f"K2 {where}: the unstaged walk differs")
+    cut = K2_STAGED_MAX_MP
+    check(_staged(cut) and not _staged(cut + 128) and cut < Mp,
+          f"K2 {where}: {cut} is not the largest Mp that stages")
+    cb, ca = boxes[:, :cut].contiguous(), alive[:, :cut].contiguous()
+    got_c, design_c = k2_landed(cb, ca, thr)
+    check(design_c == "staged" and torch.equal(got_c, _greedy_alive(cb, ca, thr)),
+          f"K2 {where}: the staged walk at Mp={cut} took {design_c} or differs")
+    reps = 10
+
+    def run(*args):
+        return lambda: [greedy_alive_cuda(*args) for _ in range(reps)]
+
+    full, part = (boxes, alive, thr), (cb, ca, thr)
+    times = [cuda_ms(run(*x), iters) / reps for x in (full, part, part, full)]
+    ms, staged_ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+    dev_ms = device_ms(lambda: greedy_alive_cuda(*full))
+    dev_staged = device_ms(lambda: greedy_alive_cuda(*part))
+    plain_ms = cuda_ms(lambda: _greedy_alive(*a, **k), 3, warmup=1)
+    t_bytes, t_ops = k2_bound(got, alive)
+    c_bytes, c_ops = k2_bound(got_c, ca)
+    bound_ms, staged_bound = (max(t_bytes, t_ops) * 1e3,
+                              max(c_bytes, c_ops) * 1e3)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"nms_keep {where}: boxes {tuple(boxes.shape)}, IoU {thr}, "
+          f"{int(alive.sum())} alive, {int(got.sum())} kept: unstaged walk "
+          f"{ms:.4f} ms ({times[0]:.4f}, {times[3]:.4f}; on the card "
+          f"{dev_ms:.4f}), bound {bound_ms:.5f} ms ({bound_by}); staged walk "
+          f"on the first {cut} candidates {staged_ms:.4f} ms ({times[1]:.4f}, "
+          f"{times[2]:.4f}; on the card {dev_staged:.4f}; {int(ca.sum())} "
+          f"alive, {int(got_c.sum())} kept), bound {staged_bound:.5f} ms; "
+          f"plain {plain_ms:.4f} ms; both walks equal the plain version bit "
+          f"for bit", flush=True)
+    return dict(shape=[B, Mp], max_abs_err=0.0, ms=ms, device_ms=dev_ms,
+                staged_cut_mp=cut, staged_ms=staged_ms,
+                staged_device_ms=dev_staged, staged_bound_ms=staged_bound,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def polygon_coverage(n_scenes=200, seed=COCOVOC_SEED):
+    """The generator's polygon segmentations held to their masks on this
+    host's OpenCV, in this process: ``n_scenes`` COCO-train scenes composed
+    from ``seed`` by the tool's own ``compose_scene``, each instance's mask
+    turned into polygons by its ``mask_to_polygons`` and decoded by the
+    port's parser. A polygon is an external contour of the mask, filled
+    again, so it covers its mask but for the components whose contour the
+    tool drops (fewer than 3 points: a pixel, a straight run); a glyph's
+    holes make it larger. Every pixel it misses must lie in such a
+    component. → (instances, instances with pixels missed, decoded/area
+    ratio min, max)."""
+    import random
+
+    import cv2
+    import numpy as np
+
+    from fgn_torch.data import rle as R
+    from fgn_torch.data.coco import segmentation_to_rle
+    from fgn_torch.tools import make_synthetic_cocovoc as T
+
+    np.random.seed(seed)
+    random.seed(seed)
+    char_of = T.char_for_category()
+    ids = [c for c, _ in T.COCO_CATEGORIES]
+    h, w = 480, 640  # the tool's COCO canvas
+    n = n_missed = 0
+    ratios = []
+    for _ in range(n_scenes):
+        _, instances = T.compose_scene(h, w, ids, char_of,
+                                       T.VARIANT_RANGES["train2017"])
+        for _, mask in instances:
+            polys = T.mask_to_polygons(mask)
+            if not polys:  # the tool writes no annotation
+                continue
+            dec = R.decode(segmentation_to_rle(polys, h, w)).astype(bool)
+            m = mask.astype(bool)
+            missed = m & ~dec
+            n += 1
+            ratios.append(float(dec.sum()) / float(m.sum()))
+            if not missed.any():
+                continue
+            n_missed += 1
+            contours, _ = cv2.findContours(mask, cv2.RETR_EXTERNAL,
+                                           cv2.CHAIN_APPROX_SIMPLE)
+            _, label = cv2.connectedComponents(mask, connectivity=8)
+            dropped = [label[int(c[0, 0, 1]), int(c[0, 0, 0])]
+                       for c in contours if c.shape[0] < 3]
+            bad = int((missed & ~np.isin(label, dropped)).sum())
+            check(bad == 0, f"polygon coverage: {bad} of {int(m.sum())} "
+                            f"mask pixels missed outside the dropped "
+                            f"components")
+    return n, n_missed, min(ratios), max(ratios)
+
+
+def cocovoc_structure(coco_root, voc_root, sizes, work):
+    """The generated stand-in held to its structure, not its bytes (the
+    card's OpenCV draws other glyphs): image, annotation and category
+    counts; every annotation's decoded mask non-empty and inside its box;
+    compressed RLEs decoding to their ``area`` exactly; polygons, whose
+    ratio to ``area`` varies with the glyphs, held to their masks by
+    ``polygon_coverage``; the VOC files, palette
+    PNGs with ignore borders and ImageSets; the parser audit catching
+    exactly the two images the tool plants. → lines to print."""
+    import json
+    import os
+
+    import cv2
+    import numpy as np
+
+    from fgn_torch.data import rle as R
+    from fgn_torch.data.coco import segmentation_to_rle
+    from fgn_torch.data.voc import VOC_IGNORE_COLOR, VOCDSParse
+    from fgn_torch.tools.make_synthetic_cocovoc import COCO_CATEGORIES
+
+    lines = []
+    for subset, n in (("train2017", sizes["coco_train"]),
+                      ("val2017", sizes["coco_val"])):
+        with open(os.path.join(coco_root, "annotations",
+                               f"instances_{subset}.json")) as f:
+            d = json.load(f)
+        files = os.listdir(os.path.join(coco_root, subset))
+        check(len(d["images"]) == n == len(files),
+              f"cocovoc {subset}: {len(d['images'])} images, {len(files)} "
+              f"files, want {n}")
+        check([(c["id"], c["name"]) for c in d["categories"]]
+              == [tuple(c) for c in COCO_CATEGORIES],
+              f"cocovoc {subset}: not the 80 COCO categories")
+        imgs = {im["id"]: im for im in d["images"]}
+        n_rle = n_crowd = 0
+        ratios = []
+        for ann in d["annotations"]:
+            im = imgs[ann["image_id"]]
+            m = R.decode(segmentation_to_rle(ann["segmentation"],
+                                             im["height"], im["width"]))
+            x, y, w, h = (int(v) for v in ann["bbox"])
+            check(0 < m.sum() == m[y:y + h, x:x + w].sum(),
+                  f"cocovoc {subset} annotation {ann['id']}: mask empty or "
+                  f"outside its box")
+            if isinstance(ann["segmentation"], dict):
+                n_rle += 1
+                check(int(m.sum()) == ann["area"],
+                      f"cocovoc {subset} annotation {ann['id']}: RLE area "
+                      f"{int(m.sum())}, want {ann['area']}")
+            else:
+                ratios.append(float(m.sum()) / ann["area"])
+            n_crowd += int(ann["iscrowd"])
+        check(n_rle and ratios, f"cocovoc {subset}: {n_rle} RLE, "
+                                f"{len(ratios)} polygon annotations")
+        lines.append(
+            f"cocovoc {subset}: {n} images, {len(d['annotations'])} "
+            f"annotations ({len(ratios)} polygon, decoded/area min "
+            f"{min(ratios):.4f} median {statistics.median(ratios):.4f} max "
+            f"{max(ratios):.4f}; {n_rle} "
+            f"compressed RLE, area exact; {n_crowd} crowd), 80 categories, "
+            f"every mask inside its box")
+    n_voc = sizes["voc_train"] + sizes["voc_val"]
+    for sub, ext in (("JPEGImages", ".jpg"), ("Annotations", ".xml"),
+                     ("SegmentationObject", ".png"),
+                     ("SegmentationClass", ".png")):
+        got = [f for f in os.listdir(os.path.join(voc_root, sub))
+               if f.endswith(ext)]
+        check(len(got) == n_voc, f"cocovoc VOC {sub}: {len(got)} files, "
+                                 f"want {n_voc}")
+    sets = {}
+    for name in ("train", "val", "trainval"):
+        with open(os.path.join(voc_root, "ImageSets", "Segmentation",
+                               f"{name}.txt")) as f:
+            sets[name] = f.read().split()
+    check(len(sets["train"]) == sizes["voc_train"]
+          and len(sets["val"]) == sizes["voc_val"]
+          and sets["trainval"] == sets["train"] + sets["val"],
+          f"cocovoc VOC ImageSets: {({k: len(v) for k, v in sets.items()})}")
+    for img_id in sets["trainval"]:
+        png = cv2.imread(os.path.join(voc_root, "SegmentationObject",
+                                      f"{img_id}.png"))[..., ::-1]
+        check(bool((png == np.array(VOC_IGNORE_COLOR, np.uint8)).all(-1).any()),
+              f"cocovoc VOC {img_id}: no ignore border")
+    excluded = VOCDSParse("train", voc_root=voc_root,
+                          root=os.path.join(work, "voc_audit")).get_excluded()
+    check(excluded == sets["train"][:2],
+          f"cocovoc VOC audit excluded {excluded}, want the two planted "
+          f"{sets['train'][:2]}")
+    n_inst, n_missed, lo, hi = polygon_coverage()
+    lines.append(f"cocovoc polygons in process: {n_inst} instance masks of "
+                 f"the tool's own scenes, each covered by its decoded "
+                 f"polygons but for the components the tool drops ({n_missed} "
+                 f"with such pixels missed); decoded/area {lo:.4f}-{hi:.4f}")
+    lines.append(f"cocovoc VOC: {n_voc} images ({sets['train'].__len__()} "
+                 f"train, {len(sets['val'])} val), XML, palette PNGs with "
+                 f"ignore borders, ImageSets; the audit excludes exactly the "
+                 f"two planted images {excluded}")
+    return lines
+
+
+def supportless_children(ds):
+    """The (query image, category) children of ``ds`` whose category has no
+    support instance in ``ds``: an episode drawn on one raises in
+    ``FewShotISEG.get_support`` (as in the JAX package)."""
+    return [(int(p), int(c)) for p, c in ds.qrys_children
+            if not len(ds.cats_insts_list[int(c)])]
+
+
+def timed_runner(Recorded, builds, waits):
+    """A ``Recorded`` runner (``recording_runner``) whose train steps are
+    also timed by CUDA events (``step_events``) and whose evaluators' steps
+    are ``CountedStep``s, each pass's split printed as ``eval_pass`` prints
+    it with K1 ×3 and K2 ×2 a batch checked; and the ``EpisodeLoader`` class
+    for ``fgn_torch.train.loop`` that records each batch's build on the
+    prefetch thread (``builds``: episodes, seconds) and the loop's wait for
+    each batch (``waits``: seconds)."""
+    import torch
+
+    from fgn_torch.data.batching import EpisodeLoader
+
+    class Loader(EpisodeLoader):
+        def _build(self, indices):
+            t = time.perf_counter()
+            out = super()._build(indices)
+            builds.append((len(indices), time.perf_counter() - t))
+            return out
+
+        def __iter__(self):
+            it = super().__iter__()
+            while True:
+                t = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
+                waits.append(time.perf_counter() - t)
+                yield item
+
+    class Timed(Recorded):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.step_events = []
+            inner = self.train_step
+
+            def train_step(batch, generator=None):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = inner(batch, generator=generator)
+                end.record()
+                self.step_events.append((start, end))
+                return out
+
+            self.train_step = train_step
+            for ev in self.evaluators:
+                ev.eval_step = CountedStep(ev.eval_step)
+                ev.run = self._split(ev, ev.run)
+
+        def _split(self, ev, run):
+            return lambda: eval_pass(ev, ev.eval_step, run, len(ev.ds),
+                                     f"coco2voc [{ev.tag}]", counted=False)[0]
+
+        def step_ms(self):
+            return [s.elapsed_time(e) for s, e in self.step_events]
+
+    return Timed, Loader
+
+
+def phase_cocovoc(dev, gpu, work):
+    """The COCO2VOC family as a user runs it, from the port's own generated
+    data, at the configs' full width (R50-C4, 800 px queries, 256 px
+    supports, N3K3, bf16), in ``work``:
+
+      * ``python -m fgn_torch.tools.make_synthetic_cocovoc`` writes the
+        stand-in (COCOVOC_SIZES, seed 8), held to its structure
+        (``cocovoc_structure``);
+      * stage 1: ``fgn_torch.main.main`` in this process on a config derived
+        from ``configs/fgn_train_coco2voc_synth.py`` (data roots, work_dir,
+        one epoch; its one check at the epoch's end): b8 Adam, K1 ×2,
+        K1-bwd ×2 and K2's unstaged walk ×1 a step, K1 ×3 and K2 ×2 staged
+        an eval batch; each step by CUDA events, the batch wait, the
+        prefetch thread's episodes/s, peak memory, each eval pass's split;
+        one more step, not counted, whose K1, K1-bwd and K2 calls are held
+        against the plain versions and timed (``coco2voc-train`` lines; K2's
+        unstaged walk beside the staged walk on its first 11,264 boxes), and
+        the first eval batch's calls (``coco2voc-eval``);
+      * the finetune cell: ``fgn_torch.main_ft.run_grid`` in this process on
+        a config derived from ``configs/fgn_ft_coco2voc_synth.py`` (data
+        roots, work_dir, stage 1's run as ``init_from``, one epoch, the
+        COCO finetune set's ``repeats`` cut from 10 to 1), γ 0.1, 3×3: b4
+        Adam, the FT=Use evaluator over VOC novel at b4; K2 unstaged at
+        (4, 12288) on a COCO batch and (4, 11520) on a VOC batch's 384x512
+        canvas, held on one more step;
+      * the DenseCL path: a seeded ``frozen_bn`` model
+        (``configs/fgn_r50_c4_densecl.py``, its affines redrawn) saved
+        through ``CheckpointManager``, exported by ``python -m
+        fgn_torch.tools.export_pretrained_pth``, then 2 steps of
+        ``configs/fgn_train_coco2voc.py`` in this process with that file
+        as ``checkpoint_fp``: every backbone tensor loaded, none missed,
+        the backbone equal to the saved one; K1 ×2, K1-bwd ×0, K2 unstaged
+        ×1 a step (the frozen backbone's maps need no gradient);
+      * the tools on stage 1's checkpoint: ``diagnose_detector`` over 2
+        batches (recall and counts finite and in range, a render written)
+        and ``eval_cat_shuffle`` over 8 episodes (both metric sets).
+
+    → ({run: launch counts}, K2's unstaged record)."""
+    import os
+    import random
+
+    import numpy as np
+    import torch
+
+    import fgn_torch
+    import fgn_torch.train.loop as loop_mod
+    from fgn_torch import main as main_mod
+    from fgn_torch import main_ft
+    from fgn_torch.config import Config
+    from fgn_torch.data.fst_bindings import init_ds_class_by_config
+    from fgn_torch.models.fgn import build_model
+    from fgn_torch.models.resnet import FrozenAffine
+    from fgn_torch.tools import diagnose_detector, eval_cat_shuffle
+    from fgn_torch.train.checkpoints import CheckpointManager
+
+    t_phase = time.perf_counter()
+    configs = os.path.join(os.path.dirname(fgn_torch.__file__), "configs")
+    d = os.path.join(work, "cocovoc")
+    os.makedirs(d)
+    coco_root = os.path.join(d, "COCO")
+    voc_root = os.path.join(d, "VOCdevkit", "VOC2012")
+    sizes = COCOVOC_SIZES
+
+    # 1. the stand-in, generated here by the port's tool; its default cache
+    # roots (data/coco_cache, data/voc_cache) land in its working directory
+    args = ["fgn_torch.tools.make_synthetic_cocovoc", "--coco-root", coco_root,
+            "--voc-root", voc_root, "--seed", str(COCOVOC_SEED)]
+    for key, v in sizes.items():
+        args += ["--" + key.replace("_", "-"), str(v)]
+    out = run_cli("generate", args, 0, cwd=d)
+    for line in out.splitlines():
+        print(f"cocovoc generate | {line}", flush=True)
+    for line in cocovoc_structure(coco_root, voc_root, sizes, d):
+        print(line, flush=True)
+    caches = {o: os.path.join(d, "data", f"{o.lower()}_cache")
+              for o in ("COCO", "VOC")}
+
+    def roots(origin, **kw):
+        return dict(root=os.path.join(d, "fst"), inner_root=caches[origin],
+                    coco_root=coco_root, voc_root=voc_root, **kw)
+
+    # the derived configs, and every dataset they train or evaluate on held
+    # to episodes that can be built
+    stage1, ft_dir = os.path.join(d, "stage1"), os.path.join(d, "ft")
+    cfg_fp = write_config(
+        os.path.join(d, "train_cfg.py"),
+        os.path.join(configs, "fgn_train_coco2voc_synth.py"),
+        dict(train_ds_cfg=roots("COCO"), eval_ds_cfg0=roots("COCO"),
+             work_dir=stage1, max_epochs=1))
+    ft_fp = write_config(
+        os.path.join(d, "ft_cfg.py"),
+        os.path.join(configs, "fgn_ft_coco2voc_synth.py"),
+        dict(ft_ds_cfg0=roots("COCO", repeats=1), ft_ds_cfg1=roots("VOC"),
+             eval_ds_cfg0=roots("VOC"), work_dir=ft_dir, init_from=stage1,
+             max_epochs=1))
+    t0 = time.perf_counter()
+    cfg, ft_cfg = Config.from_file(cfg_fp), Config.from_file(ft_fp)
+    ft_train = init_ds_class_by_config(ft_cfg.ft_ds_cfg0)
+    ft_train.merge_ds(init_ds_class_by_config(ft_cfg.ft_ds_cfg1))
+    sets = {"stage-1 train": init_ds_class_by_config(cfg.train_ds_cfg),
+            "stage-1 eval": init_ds_class_by_config(cfg.eval_ds_cfg0),
+            "finetune train": ft_train,
+            "finetune eval": init_ds_class_by_config(ft_cfg.eval_ds_cfg0)}
+    for name, ds in sets.items():
+        bad = supportless_children(ds)
+        check(not bad, f"coco2voc {name}: {len(bad)} of "
+                       f"{len(ds.qrys_children)} (query, category) children "
+                       f"have no support instance: {bad[:8]}")
+    print(f"coco2voc datasets: "
+          f"{ {k: (len(v), len(v.qrys_children)) for k, v in sets.items()} } "
+          f"(episodes, children); every child's category has a support "
+          f"instance; built in {time.perf_counter() - t0:.3f} s", flush=True)
+    del sets, ft_train
+    # the episodes draw from Python's and numpy's global generators: the
+    # same draws whatever ran before this phase
+    random.seed(COCOVOC_SEED)
+    np.random.seed(COCOVOC_SEED)
+
+    # 2. stage 1
+    mcfg = main_mod.model_config_from_cfg(cfg)
+    want = dict(backbone_norm="gn", backbone_frozen=False, deep_stem=True,
+                avg_down=True, feat_channels=1024, n_ways=3, k_shots=3,
+                compute_dtype="bfloat16", rpn_train_nms_pre=12288,
+                rpn_test_nms_pre=6144)
+    check(all(getattr(mcfg, k) == v for k, v in want.items())
+          and cfg.optimizer.type == "adam" and int(cfg.batch_size) == 8
+          and int(cfg.eval_batch_size) == 4,
+          f"coco2voc: config's model {mcfg} is not {want} at b8 adam, eval b4")
+    print(f"coco2voc stage 1: expecting per train step {COCO2VOC_TRAIN_KERNELS}"
+          f" and per eval batch {SERVE_KERNELS}", flush=True)
+    runners, builds, waits = [], [], []
+    Timed, Loader = timed_runner(recording_runner(runners), builds, waits)
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(main_mod, "Runner", Timed), \
+            mock.patch.object(loop_mod, "EpisodeLoader", Loader):
+        _, out1, counts1, wall1 = run_in_process(
+            "coco2voc stage 1", lambda: main_mod.main(Config.from_file(cfg_fp)))
+    peak = torch.cuda.max_memory_allocated()
+    (r,) = runners
+    check(r.device.type == "cuda", f"coco2voc stage 1: ran on {r.device}")
+    steps1, n_eval1 = check_runner_counts(r, counts1, "coco2voc stage 1",
+                                          COCO2VOC_TRAIN_KERNELS)
+    spe = len(r.train_ds) // 8
+    check(steps1 == r.step == spe and len(r.checks) == 1,
+          f"coco2voc stage 1: {steps1} steps to step {r.step}, {len(r.checks)} "
+          f"checks, want one epoch of {spe} and one check")
+    found = eval_metrics(out1)
+    check([w for w, _ in found] == [spe, "fresh"],
+          f"coco2voc stage 1: metrics at {[w for w, _ in found]}")
+    check_metrics(found, "coco2voc stage 1", 4)
+    step_ms = r.step_ms()
+    timed = step_ms[2:] if len(step_ms) > 4 else step_ms
+    n_eps, build_s = sum(n for n, _ in builds), sum(t for _, t in builds)
+    print(f"coco2voc stage 1: fgn_torch.main.main(cfg) in process, one epoch "
+          f"of {steps1} b8 Adam steps over {len(r.train_ds)} episodes, one "
+          f"check and the fresh pass ({n_eval1} eval batches at b4) in "
+          f"{wall1:.3f} s (host clock); a step by CUDA events median "
+          f"{statistics.median(timed):.3f} ms (min {min(timed):.3f}, max "
+          f"{max(timed):.3f}, n={len(timed)} after 2 warm-up); the loop's "
+          f"wait for a batch median {statistics.median(waits) * 1e3:.3f} ms "
+          f"(max {max(waits) * 1e3:.3f}); the prefetch thread built {n_eps} "
+          f"episodes in {build_s:.3f} s = {n_eps / build_s:.2f} episodes/s "
+          f"(collation included); peak memory {peak / 2**30:.2f} GiB; "
+          f"launches {counts1}; metrics "
+          f"{[(w, {k.split('/')[1]: round(v, 4) for k, v in m.items()}) for w, m in found]}; "
+          f"on {gpu}", flush=True)
+    print(f"coco2voc stage 1 steps, CUDA events: "
+          f"{[round(v, 3) for v in step_ms]}", flush=True)
+    # one more step and one more forward, not counted: each kernel's calls
+    # held against its plain version and timed
+    gen = torch.Generator(device=dev).manual_seed(0)
+    fwd_calls, bwd_calls, nms_calls = capture_train_calls(
+        r.raw_step, r.first["train"], gen)
+    check(len(fwd_calls) == 2 and len(bwd_calls) == 2 and len(nms_calls) == 1
+          and tuple(nms_calls[0][1][0].shape[:2]) == (8, 12288),
+          f"coco2voc-train calls {len(fwd_calls)}, {len(bwd_calls)}, "
+          f"{[tuple(a[0].shape) for _, a, _ in nms_calls]}")
+    for i, (a, k) in enumerate(fwd_calls):
+        k1_record("coco2voc-train", i, a, k)
+    backward_record(bwd_calls, where="coco2voc-train")
+    k2_rec = k2_unstaged_record("coco2voc-train", *nms_calls[0][1:])
+    eval_calls = capture_kernel_calls(r.model, r.first["eval"])
+    names = [n for n, _, _ in eval_calls]
+    check(names.count("roi_align") == 3 and names.count("nms_keep") == 2,
+          f"coco2voc-eval calls {names}")
+    kernel_records(eval_calls, where="coco2voc-eval")
+    del r, fwd_calls, bwd_calls, nms_calls, eval_calls
+    runners.clear()
+    torch.cuda.empty_cache()
+
+    # 3. the finetune cell
+    builds.clear()
+    waits.clear()
+    with mock.patch.object(main_mod, "Runner", Timed), \
+            mock.patch.object(loop_mod, "EpisodeLoader", Loader):
+        _, out2, counts2, wall2 = run_in_process(
+            "coco2voc finetune",
+            lambda: main_ft.run_grid(ft_fp, gammas=(0.1,), nks=((3, 3),)))
+    (r,) = runners
+    check(r.device.type == "cuda" and r.batch_size == 4
+          and r.optimizer.kind == "adam" and len(r.evaluators) == 1
+          and r.evaluators[0].batch_size == 4
+          and r.evaluators[0].ds.finetune == "Use"
+          and r.evaluators[0].ds.sampling_origin_ds == "VOC"
+          and r.evaluators[0].ds.sampling_cats == "novel",
+          "coco2voc finetune: not b4 Adam with one FT=Use VOC-novel "
+          "evaluator at b4")
+    steps2, n_eval2 = check_runner_counts(r, counts2, "coco2voc finetune",
+                                          COCO2VOC_TRAIN_KERNELS)
+    check(f"Initialized from stage-1 checkpoint at step {spe}" in out2
+          and os.path.isfile(os.path.join(ft_dir, "N3K3_G0.1", "FT_DONE")),
+          f"coco2voc finetune: not initialized from step {spe}, or no FT_DONE")
+    found = eval_metrics(out2)
+    check_metrics(found, "coco2voc finetune", 4)
+    check(len(found) == 2, f"coco2voc finetune: metrics at "
+                           f"{[w for w, _ in found]}")
+    step_ms = r.step_ms()
+    print(f"coco2voc finetune: fgn_torch.main_ft.run_grid in process, "
+          f"initialized from step {spe}, {steps2} b4 Adam steps (one epoch "
+          f"of {len(r.train_ds)} merged episodes), one check and the fresh "
+          f"pass ({n_eval2} eval batches of the FT=Use VOC-novel evaluator "
+          f"at b4) in {wall2:.3f} s (host clock); a step by CUDA events "
+          f"median {statistics.median(step_ms):.3f} ms; launches {counts2}; "
+          f"metrics "
+          f"{[(w, {k.split('/')[1]: round(v, 4) for k, v in m.items()}) for w, m in found]}",
+          flush=True)
+    # a COCO batch's canvas gives Mp 12288, a VOC batch's (384x512) 11520:
+    # both past what stages
+    _, _, nms_calls = capture_train_calls(r.raw_step, r.first["train"], gen)
+    check(len(nms_calls) == 1 and nms_calls[0][1][0].shape[0] == 4
+          and nms_calls[0][1][0].shape[1] in (11520, 12288),
+          f"coco2voc-ft-train K2 calls "
+          f"{[tuple(a[0].shape) for _, a, _ in nms_calls]}")
+    k2_unstaged_record("coco2voc-ft-train", *nms_calls[0][1:])
+    del r, nms_calls
+    runners.clear()
+    torch.cuda.empty_cache()
+
+    # 4. the DenseCL path: a seeded frozen_bn model, exported, converted
+    dcl = os.path.join(d, "densecl")
+    mcfg_dcl = main_mod.model_config_from_cfg(Config.from_file(
+        os.path.join(configs, "fgn_r50_c4_densecl.py")))
+    check(mcfg_dcl.backbone_norm == "frozen_bn" and mcfg_dcl.backbone_frozen,
+          f"densecl: {mcfg_dcl}")
+    src = build_model(mcfg_dcl, "cpu", seed=3)
+    g = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for mod in src.backbone.modules():
+            if isinstance(mod, FrozenAffine):
+                mod.weight.copy_(1 + 0.1 * torch.randn(mod.weight.shape,
+                                                       generator=g))
+                mod.bias.copy_(0.1 * torch.randn(mod.bias.shape, generator=g))
+    CheckpointManager(os.path.join(dcl, "src")).save(
+        0, src.state_dict(), {}, extra={"epoch": 0, "cursor": 0})
+    pth = os.path.join(dcl, "densecl.pth")
+    out = run_cli("export", ["fgn_torch.tools.export_pretrained_pth",
+                             os.path.join(dcl, "src"), pth], 0)
+    n_bb = sum(1 for _ in src.backbone.parameters())
+    check(f"tensors from step 0" in out and os.path.isfile(pth),
+          f"densecl export: {out.strip()[-300:]}")
+    print(f"densecl export: {out.strip()} ({os.path.getsize(pth)} bytes)",
+          flush=True)
+    dcl_fp = write_config(
+        os.path.join(d, "densecl_cfg.py"),
+        os.path.join(configs, "fgn_train_coco2voc.py"),
+        dict(train_ds_cfg=roots("COCO"), eval_ds_cfg0=roots("COCO"),
+             work_dir=os.path.join(dcl, "run"), checkpoint_fp=pth))
+    print(f"densecl: 2 steps of fgn_train_coco2voc.py, expecting per step "
+          f"{DENSECL_TRAIN_KERNELS}", flush=True)
+
+    class TwoSteps(Exception):
+        """Stops the run before its third step."""
+
+    class Stopping(Timed):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            inner = self.train_step
+
+            def train_step(batch, generator=None):
+                if self.step >= 2:
+                    raise TwoSteps
+                return inner(batch, generator=generator)
+
+            self.train_step = train_step
+
+    def two_steps():
+        try:
+            main_mod.main(Config.from_file(dcl_fp))
+        except TwoSteps:
+            pass
+
+    with mock.patch.object(main_mod, "Runner", Stopping):
+        _, out3, counts3, wall3 = run_in_process("densecl", two_steps)
+    (r,) = runners
+    check(r.step == 2 and counts3 == {k: 2 * v for k, v in
+                                      DENSECL_TRAIN_KERNELS.items()},
+          f"densecl: {r.step} steps, launches {counts3}")
+    check(f"load_torch_backbone: {n_bb} tensors loaded, 0 missing" in out3,
+          f"densecl: the converter did not load all {n_bb} backbone tensors")
+    saved = dict(src.backbone.named_parameters())
+    worst = 0.0
+    for name, p in r.model.backbone.named_parameters():
+        got, want_p = p.detach().cpu(), saved[name].detach()
+        if name.endswith("weight") and p.dim() == 1:
+            # γ/√(var + eps) with var = float32(1 − eps): 1 ulp at most
+            rel = float(((got - want_p).abs() / want_p.abs()).max())
+            worst = max(worst, rel)
+            check(rel <= 2.0 ** -23, f"densecl: {name} off by {rel} relative")
+        else:
+            check(torch.equal(got, want_p), f"densecl: {name} differs")
+    print(f"densecl: fgn_torch.main.main on fgn_train_coco2voc.py with "
+          f"checkpoint_fp {os.path.basename(pth)}: {n_bb} backbone tensors "
+          f"loaded, 0 missing; after 2 steps the frozen backbone equals the "
+          f"saved one (convolutions and biases exactly, affine weights within "
+          f"{worst:.3g} relative); launches {counts3} in {wall3:.3f} s (host "
+          f"clock, datasets and model built)", flush=True)
+    del r, src
+    runners.clear()
+    torch.cuda.empty_cache()
+
+    # 5. the tools on stage 1's checkpoint
+    (stats, renders), out4, counts4, wall4 = run_in_process(
+        "diagnose", lambda: diagnose_detector.main(cfg_fp, 2))
+    summ = diagnose_detector.summary(stats)
+    check(len(stats["n_props"]) > 0 and stats["prop_total"] > 0
+          and all(np.isfinite(summ[k]) and 0.0 <= summ[k] <= 1.0
+                  for k in ("prop_recall", "det_recall", "det_recall_cls"))
+          and sum(summ["score_hist"]) == sum(stats["n_dets"])
+          and renders and all(os.path.getsize(f) > 0 for f in renders)
+          and counts4 == {k: 2 * v for k, v in SERVE_KERNELS.items()},
+          f"diagnose: {summ}, renders {renders}, launches {counts4}")
+    print(f"diagnose: 2 batches of 2 in {wall4:.3f} s; {summ}; renders "
+          f"{[os.path.getsize(f) for f in renders]} bytes; launches {counts4}",
+          flush=True)
+    (base, shuf), out5, counts5, wall5 = run_in_process(
+        "cat shuffle", lambda: eval_cat_shuffle.run(cfg_fp, 8))
+    check(all(0.0 <= v <= 1.0 for m in (base, shuf) for v in m.values())
+          and counts5 == {k: 4 * v for k, v in SERVE_KERNELS.items()},
+          f"cat shuffle: {base}, {shuf}, launches {counts5}")
+    print(f"cat shuffle: 8 episodes, two passes of 2 batches in {wall5:.3f} "
+          f"s: normal {base}; shuffled {shuf}; launches {counts5}", flush=True)
+    print(f"phase_cocovoc: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"stage1": counts1, "finetune": counts2, "densecl": counts3}, k2_rec
 
 
 # -- data parallelism ------------------------------------------------------------
@@ -2649,20 +3327,36 @@ def phase_dp(dev, gpu, work, raw):
 
 
 def cv2_line():
-    """``cv2: <version>|absent; grain: present|absent``: whether this
-    machine has OpenCV, which the episode engine needs, and grain, whose
-    absence sends ``GrainEpisodeLoader`` to its fork pool."""
+    """``cv2: <version>|absent; PIL: <version>|absent; grain:
+    present|absent``: whether this machine has OpenCV, which the episode
+    engine needs, PIL, which ``utils/io.py::image_size`` needs, and grain,
+    whose absence sends ``GrainEpisodeLoader`` to its fork pool."""
     import importlib
 
-    try:
-        cv2 = f"cv2: {importlib.import_module('cv2').__version__}"
-    except ImportError:
-        cv2 = "cv2: absent"
+    parts = []
+    for name, mod in (("cv2", "cv2"), ("PIL", "PIL")):
+        try:
+            parts.append(f"{name}: {importlib.import_module(mod).__version__}")
+        except ImportError:
+            parts.append(f"{name}: absent")
     try:
         importlib.import_module("grain.python")
-        return cv2 + "; grain: present"
+        parts.append("grain: present")
     except ImportError:
-        return cv2 + "; grain: absent"
+        parts.append("grain: absent")
+    return "; ".join(parts)
+
+
+# The phases in the order they run; ``--phases`` picks some (the eval,
+# runner and dp phases take the engine's split and model config, so each
+# brings the engine phase with it).
+PHASES = ("roi_align", "roi_align_backward", "nms", "main_path", "plain_twin",
+          "coco2voc_serve", "train", "train_twin", "engine", "eval", "runner",
+          "cocovoc", "dp")
+KERNEL_KEYS = ("name", "route", "source", "replaces", "path", "launches",
+               "launches_runner", "launches_finetune", "launches_dp",
+               "launches_coco2voc", "coco2voc_unstaged", "max_abs_err", "ms",
+               "earlier_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 def main(argv=None):
@@ -2673,7 +3367,17 @@ def main(argv=None):
                          "ROI groups at its largest call, K1-bwd's channel "
                          "tiles and block sizes at its largest call, and "
                          "K2's blocks an image at its serving calls")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma list of the phases to run (default all: "
+                         f"{','.join(PHASES)}); eval, runner and dp also "
+                         "run engine. The kernels line holds what the "
+                         "chosen phases measured")
     args = ap.parse_args(argv)
+    want = set(args.phases.split(","))
+    if want - set(PHASES):
+        ap.error(f"unknown phases {sorted(want - set(PHASES))}")
+    if want & {"eval", "runner", "dp"}:
+        want.add("engine")
     try:
         import torch
     except ImportError:
@@ -2692,8 +3396,8 @@ def main(argv=None):
     dev = torch.device("cuda:0")
 
     gpu = gpu_line()
-    print(f"gpu: {gpu}; torch {torch.__version__} cuda {torch.version.cuda}",
-          flush=True)
+    print(f"gpu: {gpu}; torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"phases {','.join(p for p in PHASES if p in want)}", flush=True)
     t0 = time.perf_counter()
     libs = _build.load_all()
     secs = time.perf_counter() - t0
@@ -2706,123 +3410,151 @@ def main(argv=None):
           flush=True)
 
     t0 = time.perf_counter()
-    phase_roi_align(dev, [
-        ("support", 72, 8, 8, 1024, 1),
-        ("proposals", 8, 30, 30, 1024, 300),
-        ("detections", 8, 30, 30, 1024, 100),
-        ("coco2voc", 4, 50, 68, 1024, 300),  # ragged: 50x68 in 16-ch tiles
-        ("large", 1, 128, 128, 128, 64),  # past shared memory: direct
-    ])
-    # the staged kernel's generic instance (out_size, sampling ratio not
-    # compiled in), which no call of the model takes
-    phase_roi_align(dev, [("generic", 2, 30, 30, 256, 40)], out_size=14)
-    phase_roi_align(dev, [("generic", 2, 12, 14, 256, 20)], out_size=4,
-                    sampling_ratio=3, aligned=False)
-    phase_roi_align_backward(dev, [
-        ("supports", 108, 8, 8, 1024, 1),
-        ("sampled", 12, 30, 30, 1024, 128),
-        ("coco2voc-train", 8, 50, 68, 1024, 128),
-        ("coco2voc-supports", 72, 16, 16, 1024, 1),
-        ("ragged", 3, 30, 30, 256, 13),  # R not a multiple of the chunk
-        ("large", 1, 128, 128, 128, 20),  # past shared memory: atomics
-    ])
-    # the staged backward's generic instance (out_size, sampling ratio not
-    # compiled in), which no call of the model takes
-    phase_roi_align_backward(dev, [("generic", 2, 12, 14, 256, 20)],
-                             twin=("generic",), out_size=4, sampling_ratio=3,
-                             aligned=False)
-    phase_nms(dev)
-    _, model, batch, calls = phase_main_path(dev, gpu)
-    kernel_records(calls)  # printed; the JSON keeps this slice's paths
-    if args.profile:
-        import fgn_torch.models.fgn as fgn_mod
+    if "roi_align" in want:
+        phase_roi_align(dev, [
+            ("support", 72, 8, 8, 1024, 1),
+            ("proposals", 8, 30, 30, 1024, 300),
+            ("detections", 8, 30, 30, 1024, 100),
+            ("coco2voc", 4, 50, 68, 1024, 300),  # ragged: 50x68 in 16-ch tiles
+            ("large", 1, 128, 128, 128, 64),  # past shared memory: direct
+        ])
+        # the staged kernel's generic instance (out_size, sampling ratio not
+        # compiled in), which no call of the model takes
+        phase_roi_align(dev, [("generic", 2, 30, 30, 256, 40)], out_size=14)
+        phase_roi_align(dev, [("generic", 2, 12, 14, 256, 20)], out_size=4,
+                        sampling_ratio=3, aligned=False)
+    if "roi_align_backward" in want:
+        phase_roi_align_backward(dev, [
+            ("supports", 108, 8, 8, 1024, 1),
+            ("sampled", 12, 30, 30, 1024, 128),
+            ("coco2voc-train", 8, 50, 68, 1024, 128),
+            ("coco2voc-supports", 72, 16, 16, 1024, 1),
+            ("ragged", 3, 30, 30, 256, 13),  # R not a multiple of the chunk
+            ("large", 1, 128, 128, 128, 20),  # past shared memory: atomics
+        ])
+        # the staged backward's generic instance (out_size, sampling ratio
+        # not compiled in), which no call of the model takes
+        phase_roi_align_backward(dev, [("generic", 2, 12, 14, 256, 20)],
+                                 twin=("generic",), out_size=4,
+                                 sampling_ratio=3, aligned=False)
+    if "nms" in want:
+        phase_nms(dev)
+    if "main_path" in want:
+        _, model, batch, calls = phase_main_path(dev, gpu)
+        kernel_records(calls)  # printed; the JSON keeps this slice's paths
+        if args.profile:
+            import fgn_torch.models.fgn as fgn_mod
 
-        k1_sweep(*max(((a, k) for name, a, k in calls if name == "roi_align"),
-                      key=lambda c: c[0][1].shape[1]))
-        for name, a, _ in calls:
-            if name == "nms_keep":
-                k2_sweep("flagship", a)
+            k1_sweep(*max(((a, k) for name, a, k in calls
+                           if name == "roi_align"),
+                          key=lambda c: c[0][1].shape[1]))
+            for name, a, _ in calls:
+                if name == "nms_keep":
+                    k2_sweep("flagship", a)
 
-        phase_breakdown(
-            "forward", lambda: model.test_forward(batch),
-            [(model, s) for s in STAGES] + [(fgn_mod, "batched_nms")])
-    del model, batch, calls
-    torch.cuda.empty_cache()
-    phase_plain_twin(dev)
-    torch.cuda.empty_cache()
-    _, model, batch, calls = phase_main_path(
-        dev, gpu, B=4, H=800, W=1088, S=256, iters=5, tag="coco2voc",
-        rpn_test_nms_pre=6144)
-    del model, batch
-    # K2 at the longest walk (Mp = 6144); printed, the JSON keeps the
-    # flagship's largest call
-    kernel_records(calls, where="coco2voc", names=("nms_keep",))
-    if args.profile:
-        k2_sweep("coco2voc", next(a for name, a, _ in calls
-                                  if name == "nms_keep"))
-    del calls
-    torch.cuda.empty_cache()
-    _, fwd_calls, bwd_calls, nms_calls = phase_train(
-        dev, gpu, profile=args.profile)
-    for i, (a, k) in enumerate(fwd_calls):
-        k1_record("train-path", i, a, k)
-    kernel_records(nms_calls, where="train-path")
-    toy = backward_record(bwd_calls)
-    if args.profile:
-        k1bwd_sweep(*toy["_args"])
-    del toy, fwd_calls, bwd_calls, nms_calls
-    torch.cuda.empty_cache()
-    phase_train_twin(dev)
-    torch.cuda.empty_cache()
+            phase_breakdown(
+                "forward", lambda: model.test_forward(batch),
+                [(model, s) for s in STAGES] + [(fgn_mod, "batched_nms")])
+        del model, batch, calls
+        torch.cuda.empty_cache()
+    if "plain_twin" in want:
+        phase_plain_twin(dev)
+        torch.cuda.empty_cache()
+    if "coco2voc_serve" in want:
+        _, model, batch, calls = phase_main_path(
+            dev, gpu, B=4, H=800, W=1088, S=256, iters=5, tag="coco2voc",
+            rpn_test_nms_pre=6144)
+        del model, batch
+        # K2 at the longest walk (Mp = 6144); printed, the JSON keeps the
+        # flagship's largest call
+        kernel_records(calls, where="coco2voc", names=("nms_keep",))
+        if args.profile:
+            k2_sweep("coco2voc", next(a for name, a, _ in calls
+                                      if name == "nms_keep"))
+        del calls
+        torch.cuda.empty_cache()
+    if "train" in want:
+        _, fwd_calls, bwd_calls, nms_calls = phase_train(
+            dev, gpu, profile=args.profile)
+        for i, (a, k) in enumerate(fwd_calls):
+            k1_record("train-path", i, a, k)
+        kernel_records(nms_calls, where="train-path")
+        toy = backward_record(bwd_calls)
+        if args.profile:
+            k1bwd_sweep(*toy["_args"])
+        del toy, fwd_calls, bwd_calls, nms_calls
+        torch.cuda.empty_cache()
+    if "train_twin" in want:
+        phase_train_twin(dev)
+        torch.cuda.empty_cache()
     print(cv2_line(), flush=True)
     from fgn_torch.data.digests import CONFIG
 
+    recs, launches = {}, {}
     with tempfile.TemporaryDirectory() as work:
-        (cfg, mcfg, val, engine_counts, (fwd_calls, bwd_calls, nms_calls),
-         raw, engine_step_ms) = phase_engine(dev, gpu, work)
-        for i, (a, k) in enumerate(fwd_calls):
-            k1_record("engine-train", i, a, k)
-        kernel_records(nms_calls, where="engine-train")
-        bwd = backward_record(bwd_calls, where="engine-train")
-        del fwd_calls, bwd_calls, nms_calls
-        torch.cuda.empty_cache()
-        eval_counts, eval_calls = phase_eval(dev, gpu, val, mcfg,
-                                             B=int(cfg.eval_batch_size))
-        torch.cuda.empty_cache()
-        t_runner = time.perf_counter()
-        runner_counts, ft_counts = phase_runner(dev, gpu, work, raw,
-                                                engine_step_ms)
-        print(f"phase_runner: {time.perf_counter() - t_runner:.1f} s",
-              flush=True)
-        torch.cuda.empty_cache()
-        dp_counts, _ = phase_dp(dev, gpu, work, raw)
+        if "engine" in want:
+            (cfg, mcfg, val, engine_counts,
+             (fwd_calls, bwd_calls, nms_calls),
+             raw, engine_step_ms) = phase_engine(dev, gpu, work)
+            for i, (a, k) in enumerate(fwd_calls):
+                k1_record("engine-train", i, a, k)
+            kernel_records(nms_calls, where="engine-train")
+            bwd = backward_record(bwd_calls, where="engine-train")
+            del fwd_calls, bwd_calls, nms_calls
+            torch.cuda.empty_cache()
+            # K1-bwd's numbers come from the timed train steps on real
+            # episodes (launches) and one more step's calls
+            bwd.pop("_args")
+            recs["roi_align_backward"] = dict(
+                bwd, launches=engine_counts["roi_align_backward"],
+                path="engine train steps, " + CONFIG)
+        if "eval" in want:
+            eval_counts, eval_calls = phase_eval(dev, gpu, val, mcfg,
+                                                 B=int(cfg.eval_batch_size))
+            torch.cuda.empty_cache()
+        if "runner" in want:
+            t_runner = time.perf_counter()
+            launches["runner"], launches["finetune"] = phase_runner(
+                dev, gpu, work, raw, engine_step_ms)
+            print(f"phase_runner: {time.perf_counter() - t_runner:.1f} s",
+                  flush=True)
+            torch.cuda.empty_cache()
+        if "cocovoc" in want:
+            launches["coco2voc"], k2_unstaged = phase_cocovoc(dev, gpu, work)
+            torch.cuda.empty_cache()
+        if "dp" in want:
+            dp_counts, _ = phase_dp(dev, gpu, work, raw)
+            launches["dp"] = dp_counts
     # The kernels line reads this slice's paths, each kernel all its numbers
     # from one: K1 and K2 from eval pass 1 (launches) and its first batch's
     # calls (error, times, bound), K1-bwd from the timed train steps on
     # real episodes (launches) and one more step's calls.
-    recs = kernel_records(eval_calls, where="eval")
-    del eval_calls
-    for name in ("roi_align", "nms_keep"):
-        recs[name].update(launches=eval_counts[name],
-                          path="eval pass 1, " + CONFIG)
-    bwd.pop("_args")
-    recs["roi_align_backward"] = dict(
-        bwd, launches=engine_counts["roi_align_backward"],
-        path="engine train steps, " + CONFIG)
-    for name in ("roi_align", "roi_align_backward", "nms_keep"):
-        recs[name]["launches_runner"] = runner_counts[name]
-        recs[name]["launches_finetune"] = ft_counts[name]
-        recs[name]["launches_dp"] = [c[name] for c in dp_counts]
+    if "eval" in want:
+        for name, rec in kernel_records(eval_calls, where="eval").items():
+            recs[name] = dict(rec, launches=eval_counts[name],
+                              path="eval pass 1, " + CONFIG)
+        del eval_calls
+    for name, rec in recs.items():
+        if "runner" in launches:
+            rec["launches_runner"] = launches["runner"][name]
+            rec["launches_finetune"] = launches["finetune"][name]
+        if "dp" in launches:
+            rec["launches_dp"] = [c[name] for c in launches["dp"]]
+        if "coco2voc" in launches:
+            rec["launches_coco2voc"] = {
+                run: c[name] + (c["nms_keep_unstaged"] if name == "nms_keep"
+                                else 0)
+                for run, c in launches["coco2voc"].items()}
+            if name == "nms_keep":
+                rec["launches_coco2voc"]["unstaged"] = {
+                    run: c["nms_keep_unstaged"]
+                    for run, c in launches["coco2voc"].items()}
+                rec["coco2voc_unstaged"] = k2_unstaged
     print(f"phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    kernels = []
-    for rec in (recs["roi_align"], recs["roi_align_backward"], recs["nms_keep"]):
-        kernels.append({k: rec[k] for k in (
-            "name", "route", "source", "replaces", "path", "launches",
-            "launches_runner", "launches_finetune", "launches_dp",
-            "max_abs_err", "ms",
-            "earlier_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")})
+    kernels = [{k: recs[name][k] for k in KERNEL_KEYS if k in recs[name]}
+               for name in ("roi_align", "roi_align_backward", "nms_keep")
+               if name in recs]
     print(gpu_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -134,6 +134,18 @@ class VOCDSParse:
             hw,
         )
 
+    @staticmethod
+    def _unique_colors(px: np.ndarray, return_counts: bool = False):
+        """``np.unique(px.reshape(-1, 3), axis=0)`` (and its counts): the
+        same rows in the same order, from one sort of 24-bit keys instead of
+        a sort of byte rows, which took most of the time of a VOC parse."""
+        flat = px.reshape(-1, 3).astype(np.uint32)
+        keys = (flat[:, 0] << 16) | (flat[:, 1] << 8) | flat[:, 2]
+        out = np.unique(keys, return_counts=return_counts)
+        u = out[0] if return_counts else out
+        rows = np.stack([u >> 16, (u >> 8) & 255, u & 255], -1).astype(np.uint8)
+        return (rows, out[1]) if return_counts else rows
+
     def get_img_data_entry(self, i: int, size=None):
         """Mine instances from the palette PNGs (reference :200-268) →
         (bboxes YXYX, codes, names, colors). The ignore border and
@@ -141,8 +153,7 @@ class VOCDSParse:
         img_id = self.ids[i]
         obj = self._read_png_rgb("SegmentationObject", img_id)
         cls = self._read_png_rgb("SegmentationClass", img_id)
-        flat = obj.reshape(-1, 3)
-        colors = np.unique(flat, axis=0)
+        colors = self._unique_colors(obj)
         boxes, codes, names, inst_colors = [], [], [], []
         for color in colors:
             t = tuple(int(v) for v in color)
@@ -156,7 +167,7 @@ class VOCDSParse:
                 [ys.min(), xs.min(), ys.max() + 1, xs.max() + 1]
             )
             # class = majority class-PNG color under the instance mask
-            cvals, counts = np.unique(cls[mask], axis=0, return_counts=True)
+            cvals, counts = self._unique_colors(cls[mask], return_counts=True)
             order = np.argsort(-counts)
             name = None
             for j in order:

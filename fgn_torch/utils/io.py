@@ -1,8 +1,7 @@
 """Safe directory / file IO helpers.
 
 A copy of the JAX package's ``utils/io.py`` (the reference's
-``cp_utils/cp_dir_file_ops.py:74-186`` minus ``define_env``), without
-``image_size``, which needs PIL and which nothing of the port calls.
+``cp_utils/cp_dir_file_ops.py:74-186`` minus ``define_env``).
 
 Conventions kept from the reference:
   * ``*_safe`` creators refuse to act when the target already exists
@@ -16,7 +15,7 @@ import json
 import os
 import pickle
 import shutil
-from typing import Any
+from typing import Any, Tuple
 
 import numpy as np
 
@@ -133,3 +132,13 @@ def give_mem() -> float:
     except Exception:  # pragma: no cover - psutil should exist
         return float("nan")
 
+
+def image_size(file_fp: str) -> Tuple[int, int]:
+    """(width, height) of an image without decoding pixel data.
+
+    Replaces the reference's ``imagesize.get`` dependency
+    (reference: datasets/fewshotiseg/base_fst.py:364)."""
+    from PIL import Image
+
+    with Image.open(file_fp) as im:
+        return im.size

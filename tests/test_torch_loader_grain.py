@@ -157,3 +157,56 @@ def test_dataset_pickles(dss):
     assert a.keys() == b.keys()
     for k in a:
         assert np.array_equal(np.asarray(a[k]), np.asarray(b[k])), k
+
+
+class Serial(Seeded):
+    """``Seeded`` building one episode at a time in each process. Grain's
+    ``DataLoader`` reads records from 16 threads in each worker (its
+    ``ReadOptions.num_threads``), and an episode draws from the process's
+    global ``random`` and ``np.random``, so two episodes built at once
+    interleave their draws: with ``Seeded`` alone both packages' grain paths
+    give other batches from run to run (ROADMAP Queue 3). Behind this lock
+    each episode is its index's, whatever thread builds it."""
+
+    def __init__(self, ds):
+        super().__init__(ds)
+        self.lock = threading.Lock()
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        del state["lock"]
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self.lock = threading.Lock()
+
+    def __getitem__(self, i):
+        with self.lock:
+            return super().__getitem__(i)
+
+
+def _grain_imports():
+    try:
+        import grain.python  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+@pytest.mark.skipif(not _grain_imports(),
+                    reason="grain.python does not import here, so both "
+                           "loaders take the fork pool tested above")
+def test_grain_batches_equal_jax_loader(dss):
+    """The grain path (``_iter_grain_impl``, 2 workers) of both packages,
+    three times each: every batch equals the JAX class's byte for byte and
+    the in-process loader's."""
+    t, j = dss
+    kw = dict(max_gt=MAX_GT, worker_count=2, drop_last=False)
+    want = _batches(GrainEpisodeLoader(Serial(t), BS, max_gt=MAX_GT,
+                                       drop_last=False))
+    assert len(want) == 5
+    for _ in range(3):
+        got = _batches(GrainEpisodeLoader(Serial(t), BS, **kw), timeout=300)
+        _assert_same(got, _batches(JLoader(Serial(j), BS, **kw), timeout=300))
+        _assert_same(got, want)
