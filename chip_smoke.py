@@ -17,9 +17,23 @@ the kernels with launch counters:
   * episodic inference, ``FGN.test_forward`` (R50-C4, N3K3, 480 px, batch
     8, bf16, seeded random weights), compared as a whole against its
     plain-version twin in f32, and the COCO2VOC geometry (800x1088, b4);
-  * training, ``make_train_step`` (``FGN.train_forward``, backward, Adam):
-    2 warm-up and 5 timed full-width steps at b12 bf16, and an f32
-    training twin at b2 through the kernels and through the plain versions;
+    each timed through ``fgn_torch.bench``'s serving workload (3 rounds of
+    5 chained forwards between CUDA events; the flagship's rounds also read
+    on the host every forward), every forward counted, and the FLOPs of one
+    forward (``flops.count_flops``, the kernels' calls left out), the
+    flagship's the same through the kernels as through their plain versions
+    within ``ROUTE_FLOPS_RTOL``;
+  * training, ``make_train_step`` (``FGN.train_forward``, backward, Adam)
+    through ``fgn_torch.bench``'s train workload: 2 warm-up steps and 3
+    rounds of 5 full-width steps at b12 bf16, every step counted, one
+    step's FLOPs the same through the kernels as through their plain
+    versions within ``ROUTE_FLOPS_RTOL``, and an f32 training twin at b2
+    through the kernels and through the plain versions;
+  * the bench (``phase_bench``): the flagship at b4 and COCO2VOC N1K1 (b4;
+    K1 on 4 support maps, K2 at Mp 6144 with one way; the kernel calls of
+    both held against the plain versions), then ``fgn_torch.bench.report`` over these
+    and the three workloads above, printed as the bench's JSON line, every
+    ``mfu`` in (0, 1];
   * the system as a user runs it, from ``configs/fgn_train_mnistiseg_n3k3.py``
     (R50-C4, GN, deep stem, avg-down, N3K3, bf16): the episode engine held
     stage by stage to the committed reference (``data/digests.py``: OpenCV
@@ -69,7 +83,8 @@ the kernels with launch counters:
     checkpoint scored by 2 ranks gives the metrics and pickles of 1 rank.
 
 ``--phases a,b`` runs only the phases named (``PHASES``; eval, runner and
-dp bring the engine phase along); the default, and the full check, is all.
+dp bring the engine phase along, bench the main path, COCO2VOC serving and
+train phases); the default, and the full check, is all.
 
 With ``--profile`` it also prints where the device time of one flagship
 forward and of one train step goes (torch.profiler), K1's staged kernel
@@ -77,9 +92,12 @@ at other channel tiles and ROI groups than its rules pick, K1-bwd's staged
 kernel at other channel tiles and block sizes, and K2's walk at every
 cluster size.
 
-Prints its measurements on earlier lines; the line before the last is one
-JSON object of the kernels, each with every number from one path (its
-``path``: K1 and K2 from evaluation, K1-bwd from the engine's training;
+Prints its measurements on earlier lines, each phase's wall time on a
+``phase <name>: <s> s`` line and the bench's JSON line; the line before the
+last is one JSON object of the kernels, each with every number from one
+path (its ``path``: K1 and K2 from evaluation, K1-bwd from the engine's
+training; ``launches_bench``: a forward's (a train step's) launches in each
+bench workload;
 ``launches_dp``: each rank's launches in ``phase_dp``'s flagship run;
 ``launches_coco2voc``: each run's launches in ``phase_cocovoc``, K2's
 unstaged walk also apart, and K2's ``coco2voc_unstaged`` record);
@@ -107,7 +125,6 @@ from unittest import mock
 # outside the tensor cores, at the full 700 W power limit.
 HBM_BYTES_S = 3.35e12
 F32_FLOPS_S = 67e12
-IOU_FLOPS = 12  # min, max, sub (x2 axes), mul, add, sub, max, div, compare
 
 
 def check(cond, msg):
@@ -132,14 +149,6 @@ def strict_f32():
     finally:
         (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32,
          b.cudnn.deterministic, b.cudnn.benchmark) = saved
-
-
-def gpu_line():
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -575,11 +584,9 @@ def phase_nms(dev, B=8, M=4096):
 
 def flagship_cfg(**kw):
     from fgn_torch.config import FGNConfig
+    from fgn_torch.entry import FLAGSHIP_CFG
 
-    base = dict(n_ways=3, k_shots=3, backbone_norm="gn",
-                backbone_frozen=False, compute_dtype="bfloat16")
-    base.update(kw)
-    return FGNConfig(**base)
+    return FGNConfig(**{**FLAGSHIP_CFG, **kw})
 
 
 def zero_counts():
@@ -679,32 +686,111 @@ def capture_kernel_calls(model, batch):
     return calls
 
 
-def phase_main_path(dev, gpu, B=8, H=480, W=480, S=128, iters=10,
-                    tag="flagship", **cfg_kw):
+def counted(fn, counts):
+    """fn with the launch counters set to 0 just before each call and read
+    just after, each call's counts appended to ``counts``."""
+    def wrapped(*a, **k):
+        zero_counts()
+        out = fn(*a, **k)
+        counts.append(read_counts())
+        return out
+    return wrapped
+
+
+def rounds_line(rates, nb):
+    """A workload's rounds: the median and each round, in imgs/s and in ms
+    a forward (or step) of batch ``nb``."""
+    med = statistics.median(rates)
+    return (f"median {nb / med * 1e3:.3f} ms ({med:.2f} imgs/s; rounds "
+            + ", ".join(f"{r:.2f}" for r in rates) + " imgs/s)")
+
+
+def flops_line(res):
+    """A workload's FLOPs an image, by op, and the kernels' own."""
+    ops = sorted(res["flops_by_op_per_img"].items(), key=lambda kv: -kv[1])
+    return (f"{res['flops_per_img'] / 1e9:.6f} GFLOP an image "
+            f"(FlopCounterMode, the kernels' calls left out: "
+            + ", ".join(f"{op} {n / 1e9:.6f}" for op, n in ops)
+            + f"; the kernels' own {res['kernel_flops_per_img'] / 1e9:.6f})")
+
+
+def phase_main_path(dev, gpu, B=8, H=480, W=480, S=128, N=3, K=3, iters=5,
+                    rounds=3, blocked=True, tag="flagship", **cfg_kw):
     """FGN.test_forward through the kernels: launches counted, outputs
-    checked, time per forward (CUDA events) and the kernels' calls."""
+    checked; then ``fgn_torch.bench``'s serving workload on the same model
+    and batch (rounds of ``iters`` chained forwards between CUDA events,
+    with ``blocked`` rounds read on the host every forward too), every
+    forward counted, and the FLOPs of one forward. → (model, batch, the
+    kernels' calls, the workload's results)."""
+    from fgn_torch import bench
     from fgn_torch.data.batching import to_device, toy_batch
     from fgn_torch.models.fgn import build_model
 
-    cfg = flagship_cfg(**cfg_kw)
+    cfg = flagship_cfg(n_ways=N, k_shots=K, **cfg_kw)
     model = build_model(cfg, dev, seed=0)
-    batch = to_device(toy_batch(B=B, H=H, W=W, N=3, K=3, S=S), dev)
+    batch = to_device(toy_batch(B=B, H=H, W=W, N=N, K=K, S=S), dev)
     model.test_forward(batch)  # warm-up: cuDNN plans, kernel load
     out, counts = counted_forward(model, batch)
     print(f"main path {tag}: launches {counts}", flush=True)
     check(counts == SERVE_KERNELS,
           f"{tag}: want launches {SERVE_KERNELS} per forward, got {counts}")
     check_outputs(out, cfg, B, tag)
-    times = sorted(cuda_ms(lambda: model.test_forward(batch), 1, warmup=0)
-                   for _ in range(iters))
-    ms = statistics.median(times)
-    q1, q3 = times[len(times) // 4], times[(3 * len(times)) // 4]
+    per = []
+    res = bench.serve_bench(model, batch, iters, rounds, dev, blocked=blocked,
+                            forward=counted(model.test_forward, per))
+    want = 1 + iters * rounds * (2 if blocked else 1)
+    check(len(per) == want and all(c == SERVE_KERNELS for c in per),
+          f"{tag} bench: want {want} forwards of {SERVE_KERNELS}, got "
+          f"{len(per)}: {[c for c in per if c != SERVE_KERNELS][:2]}")
+    res["launches"] = per[0]
     n_valid = int(out["dt_valid"].sum())
-    print(f"main path {tag}: test_forward b{B} {H}x{W} N3K3 S{S} bf16 "
-          f"median {ms:.3f} ms (quartiles {q1:.3f}-{q3:.3f}, n={iters}; "
-          f"{B / ms * 1e3:.2f} imgs/s), {n_valid} detections, on {gpu}",
+    print(f"main path {tag}: test_forward b{B} {H}x{W} N{N}K{K} S{S} bf16, "
+          f"{rounds} rounds of {iters} chained forwards (CUDA events): "
+          f"{rounds_line(res['rounds'], B)}"
+          + (f"; read on the host every forward: "
+             f"{rounds_line(res['blocked_rounds'], B)}" if blocked else "")
+          + f"; {flops_line(res)}; {n_valid} detections; "
+          f"launches per forward {SERVE_KERNELS} in all {len(per)}; on {gpu}",
           flush=True)
-    return counts, model, batch, capture_kernel_calls(model, batch)
+    return model, batch, capture_kernel_calls(model, batch), res
+
+
+def plain_route_flops(run):
+    """``flops.count_flops`` of ``run()`` with the kernels' wrappers taking
+    their plain versions on the card's tensors (their einsums seen by the
+    counter, and left out by the wrappers as a kernel's calls are)."""
+    import fgn_torch.ops.nms_cuda as nc
+    import fgn_torch.ops.roi_align_cuda as rac
+    from fgn_torch.ops.flops import count_flops
+    from fgn_torch.ops.nms import _greedy_alive
+
+    def plain_bwd(g, rois, H, W, *geom):
+        return rac._roi_align_plain_bwd(g, rois, H, W, g.dtype, *geom)
+
+    with mock.patch.object(rac, "_roi_align_forward", rac._roi_align_plain), \
+            mock.patch.object(rac, "_roi_align_backward", plain_bwd), \
+            mock.patch.object(nc, "_greedy_keep", _greedy_alive):
+        return count_flops(run)
+
+
+# The FLOP count through the kernels against the count through the plain
+# versions: equal but for float rounding. Leaving out the plain RoIAlign's
+# einsums of the smallest call (the supports, R = 1) moves the count by
+# 1.4e-5, all of them by 1.1e-2.
+ROUTE_FLOPS_RTOL = 1e-6
+
+
+def check_route_flops(tag, res, plain, nb):
+    """The count an image through the kernels (``res``) held to the count
+    of ``plain_route_flops`` (``plain``, of a batch ``nb``)."""
+    kern, pl = res["flops_per_img"], plain["flops"] / nb
+    check(abs(pl / kern - 1) <= ROUTE_FLOPS_RTOL,
+          f"{tag}: FLOPs an image through the kernels {kern} and the plain "
+          f"versions {pl} differ by more than {ROUTE_FLOPS_RTOL:g}")
+    print(f"{tag}: FLOPs an image through the kernels {kern:.10g}, through "
+          f"the plain versions {pl:.10g}, within {ROUTE_FLOPS_RTOL:g} (the "
+          f"kernels' own {res['kernel_flops_per_img']:.10g} / "
+          f"{plain['kernel_flops'] / nb:.10g})", flush=True)
 
 
 def k1_record(where, i, a, k, iters=20):
@@ -715,6 +801,7 @@ def k1_record(where, i, a, k, iters=20):
     shorter than its host time reads as the host time), and on the card
     alone (``device_ms``), beside the plain version and the bound. → its
     record."""
+    from fgn_torch.ops.flops import ROI_ALIGN_FLOPS
     from fgn_torch.ops.roi_align_cuda import _roi_align_plain, roi_align_cuda
 
     fmap, rois = a[0], a[1]
@@ -743,7 +830,7 @@ def k1_record(where, i, a, k, iters=20):
     # weights, a multiply-add each, per output element
     nbytes = (fmap.numel() * fmap.element_size() + rois.numel() * 4
               + got.numel() * got.element_size())
-    ops = 2 * 16 * got.numel()
+    ops = ROI_ALIGN_FLOPS * got.numel()
     t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / F32_FLOPS_S
     bound_ms = max(t_bytes, t_ops) * 1e3
     print(f"roi_align {where} call {i}: map {tuple(fmap.shape)} "
@@ -821,15 +908,12 @@ def k1_sweep(a, k):
 def k2_bound(keep, alive):
     """K2's least time on these inputs, in seconds: (moving its bytes, doing
     its operations). Bytes: each candidate's box read and its alive and
-    keep flags, 18 bytes. Operations: the least IoUs a greedy walk needs,
-    per image with A alive and K kept, every pair of kept boxes (each must
-    be shown not to suppress the other) and one IoU above the threshold
-    for each suppressed box, at IOU_FLOPS each."""
+    keep flags, 18 bytes. Operations: ``flops.k2_ops``, the least IoUs a
+    greedy walk needs."""
+    from fgn_torch.ops.flops import k2_ops
+
     B, Mp = alive.shape
-    n_keep = keep.sum(1).double()
-    n_alive = alive.sum(1).double()
-    pairs = float((n_keep * (n_keep - 1) / 2 + n_alive - n_keep).sum())
-    return B * Mp * (16 + 1 + 1) / HBM_BYTES_S, IOU_FLOPS * pairs / F32_FLOPS_S
+    return B * Mp * (16 + 1 + 1) / HBM_BYTES_S, k2_ops(keep, alive) / F32_FLOPS_S
 
 
 def kernel_records(calls, iters=20, where="main-path", names=None):
@@ -1034,66 +1118,55 @@ TRAIN_STAGES = ("_extract", "_rpn_forward", "_rpn_loss", "get_proposals",
                 "_mask_head_impl")
 
 
-def phase_train(dev, gpu, B=12, warmup=2, iters=5, profile=False):
-    """The full-width trainer: make_train_step (train_forward, backward,
-    Adam at make_lr_schedule(5e-3, steps_per_epoch=1000)) on the flagship
-    at b12 bf16. Each timed step runs with the launch counters set to 0
-    just before it and read just after. → (counts of one step, the K1
-    forward, K1-bwd and K2 calls of one more step). With ``profile``, one
-    more step is profiled: its forward by stage, and the whole step by
-    op."""
+def phase_train(dev, gpu, B=12, iters=20, profile=False):
+    """The full-width trainer through ``fgn_torch.bench``'s train workload:
+    make_train_step (train_forward, backward, Adam at
+    make_lr_schedule(5e-3, steps_per_epoch=1000)) on the flagship at b12
+    bf16, 2 warm-up steps, 3 rounds of ``max(iters // 4, 5)`` steps between
+    CUDA events and one more step whose FLOPs are counted; every step runs
+    with the launch counters set to 0 just before it and read just after.
+    → (counts of one step, the K1 forward, K1-bwd and K2 calls of one more
+    step, the workload's results). With ``profile``, one more step is
+    profiled: its forward by stage, and the whole step by op."""
     import torch
 
-    from fgn_torch.data.batching import to_device, toy_batch
-    from fgn_torch.models.fgn import build_model
-    from fgn_torch.train.optim import build_optimizer, make_lr_schedule
-    from fgn_torch.train.train_step import make_train_step
+    from fgn_torch import bench
 
-    model = build_model(flagship_cfg(), dev, seed=0)
-    opt = build_optimizer(model, optimizer="adam",
-                          schedule=make_lr_schedule(5e-3, steps_per_epoch=1000))
-    step = make_train_step(model, opt)
-    batch = to_device(toy_batch(B=B, H=480, W=480, N=3, K=3, S=128), dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    for _ in range(warmup):
-        step(batch, gen)
+    model, opt, step, batch, gen = bench.make_train(B, dev)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times, counts = [], []
-    for _ in range(iters):
-        zero_counts()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        metrics = step(batch, gen)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-        counts.append(read_counts())
-        bad = [k for k, v in metrics.items()
-               if k.startswith("loss_") and not bool(torch.isfinite(v))]
-        check(not bad, f"train step: non-finite {bad}")
+    counts, metrics = [], []
+
+    def kept(b, g):
+        metrics.append(step(b, g))
+        return metrics[-1]
+
+    res = bench.train_bench(model, counted(kept, counts), batch, gen, iters,
+                            dev)
+    res["launches"] = counts[0]
     peak = torch.cuda.max_memory_allocated()
-    for c in counts:
-        check(c == TRAIN_KERNELS,
-              f"train step: want launches {TRAIN_KERNELS} per step, got {c}")
+    n = 2 + 3 * max(iters // 4, 5) + 1
+    check(len(counts) == n and all(c == TRAIN_KERNELS for c in counts),
+          f"train step: want {n} steps of {TRAIN_KERNELS}, got {len(counts)}: "
+          f"{[c for c in counts if c != TRAIN_KERNELS][:2]}")
+    bad = [k for m in metrics for k, v in m.items()
+           if k.startswith("loss_") and not bool(torch.isfinite(v))]
+    check(not bad, f"train step: non-finite {bad}")
     moved = {g["label"]: any(not torch.equal(p, before[n])
                              for n, p in model.named_parameters()
                              if any(p is q for q in g["params"]))
              for g in opt.param_groups}
     check(moved == {"main": True, "roi": True},
           f"train step: parameters moved per group {moved}")
-    times.sort()
-    ms = statistics.median(times)
-    q1, q3 = times[len(times) // 4], times[(3 * len(times)) // 4]
-    losses = {k: round(float(v), 4) for k, v in metrics.items()
+    losses = {k: round(float(v), 4) for k, v in metrics[-1].items()
               if k.startswith("loss_")}
-    print(f"train step: launches per step {counts[0]}; losses {losses}",
-          flush=True)
-    print(f"train step b{B} 480x480 N3K3 S128 bf16 adam: median {ms:.3f} ms "
-          f"(quartiles {q1:.3f}-{q3:.3f}, n={iters}; {B / ms * 1e3:.2f} imgs/s), "
-          f"peak memory {peak / 2**30:.2f} GiB "
+    print(f"train step: launches per step {counts[0]} in all {n}; losses "
+          f"{losses}", flush=True)
+    print(f"train step b{B} 480x480 N3K3 S128 bf16 adam, 3 rounds of "
+          f"{max(iters // 4, 5)} steps (CUDA events): "
+          f"{rounds_line(res['rounds'], B)}; {flops_line(res)} (forward, "
+          f"backward, optimizer); peak memory {peak / 2**30:.2f} GiB "
           f"(torch.cuda.max_memory_allocated), on {gpu}", flush=True)
 
     split = step_split(step, model, opt, batch, gen)
@@ -1102,12 +1175,15 @@ def phase_train(dev, gpu, B=12, warmup=2, iters=5, profile=False):
               f"{k} {v:.3f} ms" for k, v in split.items()), flush=True)
 
     fwd_calls, calls, nms_calls = capture_train_calls(step, batch, gen)
+    check_route_flops("train step", res,
+                      plain_route_flops(lambda: step(batch, gen)),
+                      batch.qry_img.shape[0])
     if profile:
         phase_breakdown(
             "train step", lambda: step(batch, gen),
             [(model, s) for s in TRAIN_STAGES])
     del model, opt, before, batch
-    return counts[0], fwd_calls, calls, nms_calls
+    return counts[0], fwd_calls, calls, nms_calls, res
 
 
 def capture_train_calls(step, batch, gen):
@@ -1210,6 +1286,7 @@ def backward_record(calls, iters=20, where="train-path"):
     bound. → the record of the largest call."""
     import torch
 
+    from fgn_torch.ops.flops import ROI_ALIGN_FLOPS
     from fgn_torch.ops.roi_align_cuda import (
         _roi_align_plain_bwd, _roi_weights, roi_align_backward_cuda,
     )
@@ -1252,7 +1329,7 @@ def backward_record(calls, iters=20, where="train-path"):
         # per element of g
         nbytes = (g.numel() * g.element_size() + rois.numel() * 4
                   + got.numel() * got.element_size())
-        ops = 2 * 16 * g.numel()
+        ops = ROI_ALIGN_FLOPS * g.numel()
         t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / F32_FLOPS_S
         bound_ms = max(t_bytes, t_ops) * 1e3
         # The atomics kernel's adds on these inputs: per bin and channel, one
@@ -2234,14 +2311,14 @@ def phase_runner(dev, gpu, work, raw, engine_step_ms):
           f"runner C: ft-train calls {len(fwd_calls)}, {len(bwd_calls)}, "
           f"{len(nms_calls)}")
     for i, (a, k) in enumerate(fwd_calls):
-        k1_record("ft-train", i, a, k)
-    kernel_records(nms_calls, where="ft-train")
-    backward_record(bwd_calls, where="ft-train")
+        k1_record("ft-train", i, a, k, iters=PRINTED_ITERS)
+    kernel_records(nms_calls, iters=PRINTED_ITERS, where="ft-train")
+    backward_record(bwd_calls, iters=PRINTED_ITERS, where="ft-train")
     eval_calls = capture_kernel_calls(r.model, r.first["eval"])
     check([n for n, _, _ in eval_calls].count("roi_align") == 3
           and [n for n, _, _ in eval_calls].count("nms_keep") == 2,
           f"runner C: ft-eval calls {[n for n, _, _ in eval_calls]}")
-    kernel_records(eval_calls, where="ft-eval")
+    kernel_records(eval_calls, iters=PRINTED_ITERS, where="ft-eval")
     del r, fwd_calls, bwd_calls, nms_calls, eval_calls
     runners.clear()
     torch.cuda.empty_cache()
@@ -2605,7 +2682,6 @@ def phase_cocovoc(dev, gpu, work):
     from fgn_torch.tools import diagnose_detector, eval_cat_shuffle
     from fgn_torch.train.checkpoints import CheckpointManager
 
-    t_phase = time.perf_counter()
     configs = os.path.join(os.path.dirname(fgn_torch.__file__), "configs")
     d = os.path.join(work, "cocovoc")
     os.makedirs(d)
@@ -2728,14 +2804,14 @@ def phase_cocovoc(dev, gpu, work):
           f"coco2voc-train calls {len(fwd_calls)}, {len(bwd_calls)}, "
           f"{[tuple(a[0].shape) for _, a, _ in nms_calls]}")
     for i, (a, k) in enumerate(fwd_calls):
-        k1_record("coco2voc-train", i, a, k)
-    backward_record(bwd_calls, where="coco2voc-train")
+        k1_record("coco2voc-train", i, a, k, iters=PRINTED_ITERS)
+    backward_record(bwd_calls, iters=PRINTED_ITERS, where="coco2voc-train")
     k2_rec = k2_unstaged_record("coco2voc-train", *nms_calls[0][1:])
     eval_calls = capture_kernel_calls(r.model, r.first["eval"])
     names = [n for n, _, _ in eval_calls]
     check(names.count("roi_align") == 3 and names.count("nms_keep") == 2,
           f"coco2voc-eval calls {names}")
-    kernel_records(eval_calls, where="coco2voc-eval")
+    kernel_records(eval_calls, iters=PRINTED_ITERS, where="coco2voc-eval")
     del r, fwd_calls, bwd_calls, nms_calls, eval_calls
     runners.clear()
     torch.cuda.empty_cache()
@@ -2783,7 +2859,8 @@ def phase_cocovoc(dev, gpu, work):
           and nms_calls[0][1][0].shape[1] in (11520, 12288),
           f"coco2voc-ft-train K2 calls "
           f"{[tuple(a[0].shape) for _, a, _ in nms_calls]}")
-    k2_unstaged_record("coco2voc-ft-train", *nms_calls[0][1:])
+    k2_unstaged_record("coco2voc-ft-train", *nms_calls[0][1:],
+                       iters=PRINTED_ITERS)
     del r, nms_calls
     runners.clear()
     torch.cuda.empty_cache()
@@ -2891,7 +2968,6 @@ def phase_cocovoc(dev, gpu, work):
           f"cat shuffle: {base}, {shuf}, launches {counts5}")
     print(f"cat shuffle: 8 episodes, two passes of 2 batches in {wall5:.3f} "
           f"s: normal {base}; shuffled {shuf}; launches {counts5}", flush=True)
-    print(f"phase_cocovoc: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"stage1": counts1, "finetune": counts2, "densecl": counts3}, k2_rec
 
 
@@ -3201,7 +3277,6 @@ def phase_dp(dev, gpu, work, raw):
     from fgn_torch.parallel.mesh import Mesh
     from fgn_torch.train.checkpoints import CheckpointManager
 
-    t_phase = time.perf_counter()
     note = ("2 ranks share the one card: each rank's time holds the other's "
             "work, and the all-reduce is gloo's, staged through host memory")
     twin_spec = dp_twin_spec()
@@ -3322,7 +3397,6 @@ def phase_dp(dev, gpu, work, raw):
           f"a global b8 (b4 a rank) against 1 rank at b4: metrics and "
           f"{len(pkl1)} results pickles equal byte for byte; {nb} batches, "
           f"launches a rank {c0}; metrics {m1}", flush=True)
-    print(f"phase_dp: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches, recs
 
 
@@ -3347,15 +3421,60 @@ def cv2_line():
     return "; ".join(parts)
 
 
+def phase_bench(dev, gpu, res):
+    """``fgn_torch.bench`` at reduced depth, its flagship b8, COCO2VOC N3K3
+    and train workloads taken from the main path, COCO2VOC and train phases
+    (``res``): adds the flagship at b4 and COCO2VOC N1K1 (800x1088 b4, 256
+    px supports, ``rpn_test_nms_pre=6144``; K1's support call on 4 maps of
+    R = 1, K2 at Mp 6144 with one way), each forward counted, the kernel
+    calls of both held against the plain versions; prints the bench's JSON
+    line, whose settings the workloads' results carry, and checks every
+    ``mfu`` in (0, 1]. → the line."""
+    import torch
+
+    from fgn_torch import bench
+
+    g = bench.COCO2VOC
+    model, batch, calls, res["coco2voc_n1k1"] = phase_main_path(
+        dev, gpu, B=4, H=g.H, W=g.W, S=g.S, N=1, K=1, blocked=False,
+        tag="coco2voc-n1k1", rpn_test_nms_pre=bench.COCO2VOC_NMS_PRE)
+    del model, batch
+    kernel_records(calls, iters=PRINTED_ITERS, where="coco2voc-n1k1")
+    del calls
+    torch.cuda.empty_cache()
+    model, batch, calls, res["flagship_alt"] = phase_main_path(
+        dev, gpu, B=4, blocked=False, tag="flagship-b4")
+    del model, batch
+    kernel_records(calls, iters=PRINTED_ITERS, where="flagship-b4")
+    del calls
+    torch.cuda.empty_cache()
+    res.update(bench.describe(dev))
+    line = bench.report(res)
+    for k, v in line.items():
+        if k == "mfu" or k.endswith("_mfu") or k == "mfu_b4":
+            check(0 < v <= 1, f"bench: {k} {v} not in (0, 1]")
+    return line
+
+
+# Runs a kernel's time is the median of (``cuda_ms``) in the records that
+# are printed only (main path, COCO2VOC serving and N1K1, flagship b4,
+# train path, engine-train K1 and K2, ft-train, ft-eval, coco2voc-train K1
+# and K1-bwd, coco2voc-eval, coco2voc-ft-train): 5, not 20, the cut that
+# pays for the bench; every call is still held against its plain version.
+# The records the kernels line reads (eval's, the engine's K1-bwd, COCO2VOC
+# stage 1's unstaged K2) keep 20.
+PRINTED_ITERS = 5
+
 # The phases in the order they run; ``--phases`` picks some (the eval,
 # runner and dp phases take the engine's split and model config, so each
 # brings the engine phase with it).
 PHASES = ("roi_align", "roi_align_backward", "nms", "main_path", "plain_twin",
-          "coco2voc_serve", "train", "train_twin", "engine", "eval", "runner",
-          "cocovoc", "dp")
+          "coco2voc_serve", "train", "bench", "train_twin", "engine", "eval",
+          "runner", "cocovoc", "dp")
 KERNEL_KEYS = ("name", "route", "source", "replaces", "path", "launches",
-               "launches_runner", "launches_finetune", "launches_dp",
-               "launches_coco2voc", "coco2voc_unstaged", "max_abs_err", "ms",
+               "launches_bench", "launches_runner", "launches_finetune",
+               "launches_dp", "launches_coco2voc", "coco2voc_unstaged",
+               "max_abs_err", "ms",
                "earlier_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
@@ -3378,6 +3497,8 @@ def main(argv=None):
         ap.error(f"unknown phases {sorted(want - set(PHASES))}")
     if want & {"eval", "runner", "dp"}:
         want.add("engine")
+    if "bench" in want:
+        want |= {"main_path", "coco2voc_serve", "train"}
     try:
         import torch
     except ImportError:
@@ -3393,8 +3514,9 @@ def main(argv=None):
         print(f"chip_smoke: the fgn_torch package is missing ({e})",
               file=sys.stderr)
         return 2
-    dev = torch.device("cuda:0")
+    from fgn_torch.bench import gpu_line
 
+    dev = torch.device("cuda:0")
     gpu = gpu_line()
     print(f"gpu: {gpu}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"phases {','.join(p for p in PHASES if p in want)}", flush=True)
@@ -3410,6 +3532,14 @@ def main(argv=None):
           flush=True)
 
     t0 = time.perf_counter()
+    phase_t = [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        print(f"phase {name}: {now - phase_t[0]:.1f} s", flush=True)
+        phase_t[0] = now
+
+    bench_res = {}
     if "roi_align" in want:
         phase_roi_align(dev, [
             ("support", 72, 8, 8, 1024, 1),
@@ -3423,6 +3553,7 @@ def main(argv=None):
         phase_roi_align(dev, [("generic", 2, 30, 30, 256, 40)], out_size=14)
         phase_roi_align(dev, [("generic", 2, 12, 14, 256, 20)], out_size=4,
                         sampling_ratio=3, aligned=False)
+        phase_done("roi_align")
     if "roi_align_backward" in want:
         phase_roi_align_backward(dev, [
             ("supports", 108, 8, 8, 1024, 1),
@@ -3437,11 +3568,21 @@ def main(argv=None):
         phase_roi_align_backward(dev, [("generic", 2, 12, 14, 256, 20)],
                                  twin=("generic",), out_size=4,
                                  sampling_ratio=3, aligned=False)
+        phase_done("roi_align_backward")
     if "nms" in want:
         phase_nms(dev)
+        phase_done("nms")
     if "main_path" in want:
-        _, model, batch, calls = phase_main_path(dev, gpu)
-        kernel_records(calls)  # printed; the JSON keeps this slice's paths
+        model, batch, calls, bench_res["flagship"] = phase_main_path(
+            dev, gpu)
+        # the FLOP count must not depend on the route: the plain versions'
+        # einsums, which the counter sees, are left out as the kernels' calls
+        check_route_flops(
+            "main path flagship", bench_res["flagship"],
+            plain_route_flops(lambda: model.test_forward(batch)),
+            batch.qry_img.shape[0])
+        # printed; the JSON keeps this slice's paths
+        kernel_records(calls, iters=PRINTED_ITERS)
         if args.profile:
             import fgn_torch.models.fgn as fgn_mod
 
@@ -3457,36 +3598,45 @@ def main(argv=None):
                 [(model, s) for s in STAGES] + [(fgn_mod, "batched_nms")])
         del model, batch, calls
         torch.cuda.empty_cache()
+        phase_done("main_path")
     if "plain_twin" in want:
         phase_plain_twin(dev)
         torch.cuda.empty_cache()
+        phase_done("plain_twin")
     if "coco2voc_serve" in want:
-        _, model, batch, calls = phase_main_path(
-            dev, gpu, B=4, H=800, W=1088, S=256, iters=5, tag="coco2voc",
-            rpn_test_nms_pre=6144)
+        model, batch, calls, bench_res["coco2voc_n3k3"] = phase_main_path(
+            dev, gpu, B=4, H=800, W=1088, S=256, blocked=False,
+            tag="coco2voc", rpn_test_nms_pre=6144)
         del model, batch
         # K2 at the longest walk (Mp = 6144); printed, the JSON keeps the
         # flagship's largest call
-        kernel_records(calls, where="coco2voc", names=("nms_keep",))
+        kernel_records(calls, iters=PRINTED_ITERS, where="coco2voc",
+                       names=("nms_keep",))
         if args.profile:
             k2_sweep("coco2voc", next(a for name, a, _ in calls
                                       if name == "nms_keep"))
         del calls
         torch.cuda.empty_cache()
+        phase_done("coco2voc_serve")
     if "train" in want:
-        _, fwd_calls, bwd_calls, nms_calls = phase_train(
+        _, fwd_calls, bwd_calls, nms_calls, bench_res["train"] = phase_train(
             dev, gpu, profile=args.profile)
         for i, (a, k) in enumerate(fwd_calls):
-            k1_record("train-path", i, a, k)
-        kernel_records(nms_calls, where="train-path")
-        toy = backward_record(bwd_calls)
+            k1_record("train-path", i, a, k, iters=PRINTED_ITERS)
+        kernel_records(nms_calls, iters=PRINTED_ITERS, where="train-path")
+        toy = backward_record(bwd_calls, iters=PRINTED_ITERS)
         if args.profile:
             k1bwd_sweep(*toy["_args"])
         del toy, fwd_calls, bwd_calls, nms_calls
         torch.cuda.empty_cache()
+        phase_done("train")
+    if "bench" in want:
+        print(json.dumps(phase_bench(dev, gpu, bench_res)), flush=True)
+        phase_done("bench")
     if "train_twin" in want:
         phase_train_twin(dev)
         torch.cuda.empty_cache()
+        phase_done("train_twin")
     print(cv2_line(), flush=True)
     from fgn_torch.data.digests import CONFIG
 
@@ -3497,8 +3647,9 @@ def main(argv=None):
              (fwd_calls, bwd_calls, nms_calls),
              raw, engine_step_ms) = phase_engine(dev, gpu, work)
             for i, (a, k) in enumerate(fwd_calls):
-                k1_record("engine-train", i, a, k)
-            kernel_records(nms_calls, where="engine-train")
+                k1_record("engine-train", i, a, k, iters=PRINTED_ITERS)
+            kernel_records(nms_calls, iters=PRINTED_ITERS,
+                           where="engine-train")
             bwd = backward_record(bwd_calls, where="engine-train")
             del fwd_calls, bwd_calls, nms_calls
             torch.cuda.empty_cache()
@@ -3508,23 +3659,25 @@ def main(argv=None):
             recs["roi_align_backward"] = dict(
                 bwd, launches=engine_counts["roi_align_backward"],
                 path="engine train steps, " + CONFIG)
+            phase_done("engine")
         if "eval" in want:
             eval_counts, eval_calls = phase_eval(dev, gpu, val, mcfg,
                                                  B=int(cfg.eval_batch_size))
             torch.cuda.empty_cache()
+            phase_done("eval")
         if "runner" in want:
-            t_runner = time.perf_counter()
             launches["runner"], launches["finetune"] = phase_runner(
                 dev, gpu, work, raw, engine_step_ms)
-            print(f"phase_runner: {time.perf_counter() - t_runner:.1f} s",
-                  flush=True)
             torch.cuda.empty_cache()
+            phase_done("runner")
         if "cocovoc" in want:
             launches["coco2voc"], k2_unstaged = phase_cocovoc(dev, gpu, work)
             torch.cuda.empty_cache()
+            phase_done("cocovoc")
         if "dp" in want:
             dp_counts, _ = phase_dp(dev, gpu, work, raw)
             launches["dp"] = dp_counts
+            phase_done("dp")
     # The kernels line reads this slice's paths, each kernel all its numbers
     # from one: K1 and K2 from eval pass 1 (launches) and its first batch's
     # calls (error, times, bound), K1-bwd from the timed train steps on
@@ -3535,6 +3688,10 @@ def main(argv=None):
                               path="eval pass 1, " + CONFIG)
         del eval_calls
     for name, rec in recs.items():
+        if "bench" in want:  # a forward's (a train step's) launches
+            rec["launches_bench"] = {w: r["launches"][name]
+                                     for w, r in bench_res.items()
+                                     if isinstance(r, dict) and "launches" in r}
         if "runner" in launches:
             rec["launches_runner"] = launches["runner"][name]
             rec["launches_finetune"] = launches["finetune"][name]
