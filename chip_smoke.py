@@ -242,13 +242,20 @@ def device_ms(fn, n=10, iters=5):
     return statistics.median(times)
 
 
+def moved_by(fn, names, *a, **k):
+    """fn(*a, **k) → (its result, how far it moved each launch counter of
+    ``names``)."""
+    from fgn_torch.utils.profiling import counts
+
+    before = counts()
+    out = fn(*a, **k)
+    after = counts()
+    return out, tuple(after.get(n, 0) - before.get(n, 0) for n in names)
+
+
 def k1_landed(fn, *a, **k):
     """fn(*a, **k) → (its result, the K1 design whose counter it moved)."""
-    from fgn_torch.ops.roi_align_cuda import roi_align_cuda as rac
-
-    before = (rac.launches, rac.launches_direct)
-    out = fn(*a, **k)
-    moved = (rac.launches - before[0], rac.launches_direct - before[1])
+    out, moved = moved_by(fn, ("k1.staged", "k1.direct"), *a, **k)
     check(moved in ((1, 0), (0, 1)), f"K1 launches moved by {moved}")
     return out, "staged" if moved == (1, 0) else "direct"
 
@@ -333,9 +340,7 @@ def k1bwd_landed(*a, **k):
     whose counter it moved: "staged" or "atomic")."""
     from fgn_torch.ops.roi_align_cuda import roi_align_backward_cuda as rbc
 
-    before = (rbc.launches, rbc.launches_atomic)
-    out = rbc(*a, **k)
-    moved = (rbc.launches - before[0], rbc.launches_atomic - before[1])
+    out, moved = moved_by(rbc, ("k1_bwd.staged", "k1_bwd.atomic"), *a, **k)
     check(moved in ((1, 0), (0, 1)), f"K1-bwd launches moved by {moved}")
     return out, "staged" if moved == (1, 0) else "atomic"
 
@@ -447,9 +452,7 @@ def k2_landed(*a, **k):
     it moved: "staged" or "unstaged")."""
     from fgn_torch.ops.nms_cuda import greedy_alive_cuda as gac
 
-    before = (gac.launches, gac.launches_unstaged)
-    out = gac(*a, **k)
-    moved = (gac.launches - before[0], gac.launches_unstaged - before[1])
+    out, moved = moved_by(gac, ("k2.staged", "k2.unstaged"), *a, **k)
     check(moved in ((1, 0), (0, 1)), f"K2 launches moved by {moved}")
     return out, "staged" if moved == (1, 0) else "unstaged"
 
@@ -590,32 +593,24 @@ def flagship_cfg(**kw):
 
 
 def zero_counts():
-    from fgn_torch.ops.nms_cuda import greedy_alive_cuda
-    from fgn_torch.ops.roi_align_cuda import (
-        roi_align_backward_cuda, roi_align_cuda,
-    )
+    from fgn_torch.utils.profiling import reset
 
-    roi_align_cuda.launches = 0
-    roi_align_cuda.launches_direct = 0
-    roi_align_backward_cuda.launches = 0
-    roi_align_backward_cuda.launches_atomic = 0
-    greedy_alive_cuda.launches = 0
-    greedy_alive_cuda.launches_unstaged = 0
+    reset()
+
+
+# the program's launch counters (fgn_torch/utils/profiling.py) by the names
+# this script prints
+COUNTERS = {"roi_align": "k1.staged", "roi_align_direct": "k1.direct",
+            "roi_align_backward": "k1_bwd.staged",
+            "roi_align_backward_atomic": "k1_bwd.atomic",
+            "nms_keep": "k2.staged", "nms_keep_unstaged": "k2.unstaged"}
 
 
 def read_counts():
-    from fgn_torch.ops.nms_cuda import greedy_alive_cuda
-    from fgn_torch.ops.roi_align_cuda import (
-        roi_align_backward_cuda, roi_align_cuda,
-    )
+    from fgn_torch.utils.profiling import counts
 
-    return {"roi_align": roi_align_cuda.launches,
-            "roi_align_direct": roi_align_cuda.launches_direct,
-            "roi_align_backward": roi_align_backward_cuda.launches,
-            "roi_align_backward_atomic":
-                roi_align_backward_cuda.launches_atomic,
-            "nms_keep": greedy_alive_cuda.launches,
-            "nms_keep_unstaged": greedy_alive_cuda.launches_unstaged}
+    now = counts()
+    return {k: now.get(v, 0) for k, v in COUNTERS.items()}
 
 
 # K1's, K1-bwd's and K2's launches are their staged kernels': no map of a
@@ -995,45 +990,32 @@ def kernel_records(calls, iters=20, where="main-path", names=None):
     return recs
 
 
-STAGES = ("_extract", "_rpn_forward", "get_proposals", "_count_spp",
-          "_bbox_feats", "_relation_impl", "_mask_head_impl")
-
-
-def phase_breakdown(what, run, spans, top=12):
+def phase_breakdown(what, run, kind, top=12):
     """Where one call's device time goes (``--profile`` only): torch.profiler
-    over ``run()``, with each (owner, attribute) of ``spans`` wrapped in a
-    record_function span named after the attribute, from this script; the
-    program is unchanged."""
+    over ``run()``, whose stages are the program's own spans of its
+    ``kind`` unit (``fgn_torch/utils/profiling.py``: the ``fgn/`` ranges,
+    with each span's stream ms from its CUDA events)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
-    def span(name, fn):
-        def wrapped(*a, **k):
-            with record_function(name):
-                return fn(*a, **k)
-        return wrapped
+    from fgn_torch.utils import profiling
 
-    patches = [mock.patch.object(owner, attr, span(attr, getattr(owner, attr)))
-               for owner, attr in spans]
-    for p in patches:
-        p.start()
-    try:
-        run()  # warm the wrapped path
+    run()  # warm the path
+    torch.cuda.synchronize()
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-    finally:
-        for p in patches:
-            p.stop()
+        wall = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    names = {attr for _, attr in spans}
 
     def on_card(e):
         return e.device_type.name == "CUDA"
+
+    def stage(e):
+        return e.key.startswith(profiling.PREFIX) and not on_card(e)
 
     busy = sum(e.self_device_time_total for e in events
                if on_card(e) and not e.is_user_annotation) / 1e3
@@ -1041,11 +1023,15 @@ def phase_breakdown(what, run, spans, top=12):
           f"kernels busy {busy:.3f} ms ({100 * busy / wall:.1f} %), idle "
           f"{max(wall - busy, 0.0):.3f} ms", flush=True)
     for e in events:
-        if e.key in names and on_card(e):
+        if stage(e):
             print(f"  stage {e.key}: {e.device_time_total / 1e3:.3f} ms on the "
                   f"card, {e.count} calls", flush=True)
+    for path, v in profiling.summary(kind)["spans"].items():
+        print(f"  span {path}: stream {v['stream_ms']:.3f} ms (self "
+              f"{v['self_stream_ms']:.3f}), host {v['host_ms']:.3f} ms",
+              flush=True)
     ops = sorted((e for e in events
-                  if not on_card(e) and e.key not in names
+                  if not on_card(e) and not stage(e)
                   and e.self_device_time_total > 0),
                  key=lambda e: e.self_device_time_total, reverse=True)[:top]
     for e in ops:
@@ -1113,11 +1099,6 @@ def phase_plain_twin(dev):
           flush=True)
 
 
-TRAIN_STAGES = ("_extract", "_rpn_forward", "_rpn_loss", "get_proposals",
-                "_sample_rois", "_count_spp", "_bbox_feats", "_relation_impl",
-                "_mask_head_impl")
-
-
 def phase_train(dev, gpu, B=12, iters=20, profile=False):
     """The full-width trainer through ``fgn_torch.bench``'s train workload:
     make_train_step (train_forward, backward, Adam at
@@ -1169,9 +1150,9 @@ def phase_train(dev, gpu, B=12, iters=20, profile=False):
           f"backward, optimizer); peak memory {peak / 2**30:.2f} GiB "
           f"(torch.cuda.max_memory_allocated), on {gpu}", flush=True)
 
-    split = step_split(step, model, opt, batch, gen)
-    print("train step split (CUDA events around each part, median of 3; host "
-          "gaps inside a part included): " + ", ".join(
+    split = step_split(step, batch, gen)
+    print("train step split (the program's spans' CUDA events, median of 3; "
+          "host gaps inside a part included): " + ", ".join(
               f"{k} {v:.3f} ms" for k, v in split.items()), flush=True)
 
     fwd_calls, calls, nms_calls = capture_train_calls(step, batch, gen)
@@ -1180,8 +1161,7 @@ def phase_train(dev, gpu, B=12, iters=20, profile=False):
                       batch.qry_img.shape[0])
     if profile:
         phase_breakdown(
-            "train step", lambda: step(batch, gen),
-            [(model, s) for s in TRAIN_STAGES])
+            "train step", lambda: step(batch, gen), "step")
     del model, opt, before, batch
     return counts[0], fwd_calls, calls, nms_calls, res
 
@@ -1189,9 +1169,7 @@ def phase_train(dev, gpu, B=12, iters=20, profile=False):
 def capture_train_calls(step, batch, gen):
     """The arguments of every kernel call of one more train step, in order:
     (K1 forward [(args, kwargs)], K1-bwd [(args, kwargs)], K2 [("nms_keep",
-    args, kwargs)]). The kernels run as usual; the step is not counted (the
-    wrappers count their launches on the module's names, the recorders
-    while they stand in)."""
+    args, kwargs)]). The kernels run, and count their launches, as usual."""
     import fgn_torch.models.fgn as fgn_mod
     import fgn_torch.ops.roi_align_cuda as rac
 
@@ -1211,7 +1189,6 @@ def capture_train_calls(step, batch, gen):
         nms_calls.append(("nms_keep", a, k))
         return real_nms(*a, **k)
 
-    recorder.launches = 0
     with mock.patch.object(rac, "roi_align_backward_cuda", recorder), \
             mock.patch.object(fgn_mod, "roi_align_cuda", fwd_recorder), \
             mock.patch.object(fgn_mod, "greedy_alive_cuda", nms_recorder):
@@ -1219,35 +1196,28 @@ def capture_train_calls(step, batch, gen):
     return fwd_calls, calls, nms_calls
 
 
-def step_split(step, model, opt, batch, gen, iters=3):
-    """The train step's time on the card's clock, split at train_forward,
-    backward and the optimizer's step: CUDA events recorded around each
-    part. → {part: median ms}."""
+def step_split(step, batch, gen, iters=3):
+    """The train step's time on the card's clock, split at the program's
+    spans ``forward`` (train_forward), ``backward`` (with the gradients'
+    sum) and ``optimizer`` (zero_grad and the step): each span's CUDA
+    events, recorded under a device-only profiler. → {part: median ms}."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
-    marks = {}
+    from fgn_torch.utils import profiling
 
-    def timed(name, fn):
-        def wrapped(*a, **k):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*a, **k)
-            end.record()
-            marks.setdefault(name, []).append((start, end))
-            return out
-        return wrapped
-
-    with mock.patch.object(model, "train_forward",
-                           timed("train_forward", model.train_forward)), \
-            mock.patch.object(torch.Tensor, "backward",
-                              timed("backward", torch.Tensor.backward)), \
-            mock.patch.object(opt, "step", timed("optimizer step", opt.step)):
-        for _ in range(iters):
+    parts = {"train_forward": "step/forward", "backward": "step/backward",
+             "optimizer step": "step/optimizer"}
+    marks = {k: [] for k in parts}
+    for _ in range(iters):
+        profiling.reset()
+        with profile(activities=[ProfilerActivity.CUDA]):
             step(batch, gen)
+        spans = profiling.summary("step")["spans"]
+        for k, p in parts.items():
+            marks[k].append(spans[p]["stream_ms"])
     torch.cuda.synchronize()
-    return {k: statistics.median(s.elapsed_time(e) for s, e in v)
-            for k, v in marks.items()}
+    return {k: statistics.median(v) for k, v in marks.items()}
 
 
 def k1bwd_sweep(a, k):
@@ -3584,8 +3554,6 @@ def main(argv=None):
         # printed; the JSON keeps this slice's paths
         kernel_records(calls, iters=PRINTED_ITERS)
         if args.profile:
-            import fgn_torch.models.fgn as fgn_mod
-
             k1_sweep(*max(((a, k) for name, a, k in calls
                            if name == "roi_align"),
                           key=lambda c: c[0][1].shape[1]))
@@ -3594,8 +3562,7 @@ def main(argv=None):
                     k2_sweep("flagship", a)
 
             phase_breakdown(
-                "forward", lambda: model.test_forward(batch),
-                [(model, s) for s in STAGES] + [(fgn_mod, "batched_nms")])
+                "forward", lambda: model.test_forward(batch), "request")
         del model, batch, calls
         torch.cuda.empty_cache()
         phase_done("main_path")

@@ -58,6 +58,7 @@ from fgn_torch.ops.roi_align import roi_align
 from fgn_torch.ops.roi_align_cuda import roi_align_cuda
 from fgn_torch.ops.sample import random_sample_pos_neg
 from fgn_torch.parallel.mesh import Mesh, global_sum, rank_draws
+from fgn_torch.utils.profiling import span, unit
 
 # float64 serves the parity tests: gradients of this network in float32
 # differ from the exact ones by up to a few percent of a leaf's largest
@@ -168,15 +169,16 @@ class FGN(nn.Module):
     def _extract(self, batch):
         """→ qry_fmap (B,h,w,C); spp_fmaps (B,N,K,hs,ws,C) or None."""
         c = self.cfg
-        qry = self._remat("backbone", self.backbone,
-                          self._normalize(batch.qry_img, batch))
-        if not c.guidance:
-            return qry, None
-        B, NK, S1, S2, _ = batch.spp_imgs.shape
-        spp = self._remat("backbone", self.backbone, self._normalize(
-            batch.spp_imgs.reshape(B * NK, S1, S2, 3), batch))
-        hs, ws, C = spp.shape[1:]
-        return qry, spp.reshape(B, c.n_ways, c.k_shots, hs, ws, C)
+        with span("extract"):
+            qry = self._remat("backbone", self.backbone,
+                              self._normalize(batch.qry_img, batch))
+            if not c.guidance:
+                return qry, None
+            B, NK, S1, S2, _ = batch.spp_imgs.shape
+            spp = self._remat("backbone", self.backbone, self._normalize(
+                batch.spp_imgs.reshape(B * NK, S1, S2, 3), batch))
+            hs, ws, C = spp.shape[1:]
+            return qry, spp.reshape(B, c.n_ways, c.k_shots, hs, ws, C)
 
     def _rpn_forward(self, qry_fmap, spp_fmaps):
         """AG-RPN conv pass → cls (B,N,h,w,A), reg (B,N,h,w,A,4)."""
@@ -253,21 +255,24 @@ class FGN(nn.Module):
         B, N, K, hs, ws, C = spp_fmaps.shape
         NK = N * K
         S = spp_masks.shape[-1]
-        rois = spp_boxes.reshape(B * NK, 1, 4).to(torch.float32).contiguous()
-        masks_aligned = roi_align(
-            mask_to_float(spp_masks).reshape(B * NK, S, S, 1),
-            rois, 7, spatial_scale=1.0,
-        )  # (B*NK, 1, 7, 7, 1) — C=1: the gather form on every device
-        fmaps_aligned = self._roi_align_fmap(
-            spp_fmaps.reshape(B * NK, hs, ws, C), rois, 1.0 / c.stride
-        )  # (B*NK, 1, 7, 7, C)
-        feats = self._remat("res5", self.shared5,
-                            fmaps_aligned.reshape(B * NK, 7, 7, C))
-        feats = feats.reshape(B, N, K, 7, 7, C)
-        spp_maps = feats.mean(dim=2)  # (B, N, 7, 7, C)
-        weighted = feats * masks_aligned.reshape(B, N, K, 7, 7, 1).to(feats.dtype)
-        spp_vecs_mask = weighted.mean(dim=(2, 3, 4))  # (B, N, C)
-        return spp_maps, spp_vecs_mask
+        with span("support"):
+            rois = spp_boxes.reshape(B * NK, 1, 4).to(torch.float32)
+            rois = rois.contiguous()
+            masks_aligned = roi_align(
+                mask_to_float(spp_masks).reshape(B * NK, S, S, 1),
+                rois, 7, spatial_scale=1.0,
+            )  # (B*NK, 1, 7, 7, 1) — C=1: the gather form on every device
+            fmaps_aligned = self._roi_align_fmap(
+                spp_fmaps.reshape(B * NK, hs, ws, C), rois, 1.0 / c.stride
+            )  # (B*NK, 1, 7, 7, C)
+            feats = self._remat("res5", self.shared5,
+                                fmaps_aligned.reshape(B * NK, 7, 7, C))
+            feats = feats.reshape(B, N, K, 7, 7, C)
+            spp_maps = feats.mean(dim=2)  # (B, N, 7, 7, C)
+            weighted = feats * masks_aligned.reshape(
+                B, N, K, 7, 7, 1).to(feats.dtype)
+            spp_vecs_mask = weighted.mean(dim=(2, 3, 4))  # (B, N, C)
+            return spp_maps, spp_vecs_mask
 
     def _roi_align_fmap(self, fmap, rois, scale):
         """RoIAlign on backbone features: the CUDA kernel (plain version on
@@ -282,11 +287,13 @@ class FGN(nn.Module):
         """(B,R,4) rois → (B,R,7,7,C) shared-res5 features."""
         B, R = rois.shape[:2]
         C = qry_fmap.shape[-1]
-        feats = self._roi_align_fmap(
-            qry_fmap, rois.to(torch.float32).contiguous(), 1.0 / self.cfg.stride
-        )  # (B, R, 7, 7, C)
-        feats = self._remat("res5", self.shared5, feats.reshape(B * R, 7, 7, C))
-        return feats.reshape(B, R, 7, 7, C)
+        with span("roi"):
+            feats = self._roi_align_fmap(
+                qry_fmap, rois.to(torch.float32).contiguous(),
+                1.0 / self.cfg.stride)  # (B, R, 7, 7, C)
+            feats = self._remat("res5", self.shared5,
+                                feats.reshape(B * R, 7, 7, C))
+            return feats.reshape(B, R, 7, 7, C)
 
     def _relation(self, bbox_feats, spp_maps):
         return self._remat("relation", self._relation_impl, bbox_feats,
@@ -454,21 +461,25 @@ class FGN(nn.Module):
         N = c.n_ways
 
         qry_fmap, spp_fmaps = self._extract(batch)
-        rpn_cls, rpn_reg = self._rpn_forward(qry_fmap, spp_fmaps)
+        with span("rpn"):
+            rpn_cls, rpn_reg = self._rpn_forward(qry_fmap, spp_fmaps)
         h, w, A = rpn_cls.shape[2:]
-        losses = self._rpn_loss(rpn_cls, rpn_reg, batch,
-                                draws("rpn", (B, N, 2, h * w * A)), mesh)
+        with span("rpn_loss"):
+            losses = self._rpn_loss(rpn_cls, rpn_reg, batch,
+                                    draws("rpn", (B, N, 2, h * w * A)), mesh)
 
         # Proposals are inputs to the second stage, not a gradient path.
-        with torch.no_grad():
+        with span("rpn"), torch.no_grad():
             merged_cls, merged_reg = self._merge_ways(rpn_cls, rpn_reg)
             props, _, prop_valid = self.get_proposals(
                 merged_cls, merged_reg, batch.img_hw,
                 c.rpn_train_nms_pre, c.rpn_train_max_per_img,
             )
         G, P = batch.qry_boxes.shape[1], props.shape[1]
-        rois, labels, gt_idx, is_pos, is_valid, tgt_boxes = self._sample_rois(
-            batch, props, prop_valid, draws("rcnn", (B, 2, G + P)))
+        with span("sample"):
+            sampled = self._sample_rois(batch, props, prop_valid,
+                                        draws("rcnn", (B, 2, G + P)))
+            rois, labels, gt_idx, is_pos, is_valid, tgt_boxes = sampled
         R = rois.shape[1]
 
         spp_maps = spp_vecs_mask = None
@@ -477,127 +488,140 @@ class FGN(nn.Module):
                 spp_fmaps, batch.spp_boxes, batch.spp_masks
             )
         bbox_feats = self._bbox_feats(qry_fmap, rois)
-        cls_final, reg_ways = self._relation(bbox_feats, spp_maps)
-
-        lw = is_valid.to(torch.float32).reshape(B * R)
-        flat_cls = cls_final.reshape(B * R, N + 1)
-        flat_labels = labels.reshape(B * R)
-        n_valid = global_sum(lw.sum(), mesh)
-        losses["loss_cls"] = softmax_ce(flat_cls, flat_labels, lw,
-                                        n_valid.clamp(min=1.0))
-        way = labels.clamp(0, N - 1).long()
-        pred_deltas = torch.gather(
-            reg_ways, 2, way[:, :, None, None].expand(-1, -1, 1, 4))[:, :, 0]
-        targets = delta_encode(rois, tgt_boxes, stds=c.rcnn_bbox_stds)
-        bw = is_pos.to(torch.float32)[..., None]
-        b_all = B * (1 if mesh is None else mesh.world_size)
-        losses["loss_bbox"] = smooth_l1(pred_deltas, targets, bw,
-                                        float(b_all * R))
-        acc, bal = accuracy_balanced(flat_cls, flat_labels, lw, N + 1,
-                                     reduce=lambda t: global_sum(t, mesh))
-        losses["acc"] = acc
-        losses["acc_balanced"] = bal
+        with span("box_head"):
+            cls_final, reg_ways = self._relation(bbox_feats, spp_maps)
+            lw = is_valid.to(torch.float32).reshape(B * R)
+            flat_cls = cls_final.reshape(B * R, N + 1)
+            flat_labels = labels.reshape(B * R)
+            n_valid = global_sum(lw.sum(), mesh)
+            losses["loss_cls"] = softmax_ce(flat_cls, flat_labels, lw,
+                                            n_valid.clamp(min=1.0))
+            way = labels.clamp(0, N - 1).long()
+            pred_deltas = torch.gather(
+                reg_ways, 2,
+                way[:, :, None, None].expand(-1, -1, 1, 4))[:, :, 0]
+            targets = delta_encode(rois, tgt_boxes, stds=c.rcnn_bbox_stds)
+            bw = is_pos.to(torch.float32)[..., None]
+            b_all = B * (1 if mesh is None else mesh.world_size)
+            losses["loss_bbox"] = smooth_l1(pred_deltas, targets, bw,
+                                            float(b_all * R))
+            acc, bal = accuracy_balanced(flat_cls, flat_labels, lw, N + 1,
+                                         reduce=lambda t: global_sum(t, mesh))
+            losses["acc"] = acc
+            losses["acc_balanced"] = bal
 
         # -- mask branch: positives live in the first P_max slots ----------
-        P_max = max(int(R * c.rcnn_pos_fraction), 1)
-        m = c.mask_size
-        pos_feats = bbox_feats[:, :P_max]
-        if c.guidance:
-            C = spp_vecs_mask.shape[-1]
-            gate = torch.gather(spp_vecs_mask, 1,
-                                way[:, :P_max, None].expand(-1, -1, C))
-            pos_feats = pos_feats * gate[:, :, None, None, :].to(pos_feats.dtype)
-        mask_logits = self._mask_head(
-            pos_feats.reshape(B * P_max, 7, 7, -1)
-        ).reshape(B, P_max, m, m)
+        with span("mask_head"):
+            P_max = max(int(R * c.rcnn_pos_fraction), 1)
+            m = c.mask_size
+            pos_feats = bbox_feats[:, :P_max]
+            if c.guidance:
+                C = spp_vecs_mask.shape[-1]
+                gate = torch.gather(spp_vecs_mask, 1,
+                                    way[:, :P_max, None].expand(-1, -1, C))
+                pos_feats = pos_feats * gate[:, :, None, None, :].to(
+                    pos_feats.dtype)
+            mask_logits = self._mask_head(
+                pos_feats.reshape(B * P_max, 7, 7, -1)
+            ).reshape(B, P_max, m, m)
 
-        # targets: RoIAlign of the (downsampled) gt masks at the pos rois
-        with torch.no_grad():
-            mh = batch.qry_masks.shape[2]
-            mask_fmap = mask_to_float(batch.qry_masks).permute(0, 2, 3, 1)
-            aligned = roi_align(
-                mask_fmap, rois[:, :P_max].to(torch.float32), m,
-                spatial_scale=float(mh) / float(batch.qry_img.shape[1]),
-            )  # (B, P_max, m, m, G)
-            sel = gt_idx[:, :P_max, None, None, None].expand(-1, -1, m, m, 1)
-            tgt = (torch.gather(aligned, -1, sel)[..., 0] >= 0.5).to(torch.float32)
-        pos_m = is_pos[:, :P_max].to(torch.float32)
-        n_pos_px = global_sum(pos_m.sum(), mesh).clamp(min=1.0) * (m * m)
-        losses["loss_mask"] = sigmoid_bce(mask_logits, tgt,
-                                          pos_m[..., None, None], n_pos_px)
+            # targets: RoIAlign of the (downsampled) gt masks at the pos rois
+            with torch.no_grad():
+                mh = batch.qry_masks.shape[2]
+                mask_fmap = mask_to_float(batch.qry_masks).permute(0, 2, 3, 1)
+                aligned = roi_align(
+                    mask_fmap, rois[:, :P_max].to(torch.float32), m,
+                    spatial_scale=float(mh) / float(batch.qry_img.shape[1]),
+                )  # (B, P_max, m, m, G)
+                sel = gt_idx[:, :P_max, None, None, None].expand(
+                    -1, -1, m, m, 1)
+                tgt = (torch.gather(aligned, -1, sel)[..., 0] >= 0.5).to(
+                    torch.float32)
+            pos_m = is_pos[:, :P_max].to(torch.float32)
+            n_pos_px = global_sum(pos_m.sum(), mesh).clamp(min=1.0) * (m * m)
+            losses["loss_mask"] = sigmoid_bce(mask_logits, tgt,
+                                              pos_m[..., None, None], n_pos_px)
         return losses
 
     # -- inference ------------------------------------------------------------
 
     @torch.no_grad()
     def test_forward(self, batch: EpisodeBatch) -> Dict[str, torch.Tensor]:
-        c = self.cfg
-        batch = to_device(batch, self.rpn_conv.weight.device)
-        B = batch.qry_img.shape[0]
-        N = c.n_ways
+        with unit("request"):
+            c = self.cfg
+            batch = to_device(batch, self.rpn_conv.weight.device)
+            B = batch.qry_img.shape[0]
+            N = c.n_ways
 
-        qry_fmap, spp_fmaps = self._extract(batch)
-        rpn_cls, rpn_reg = self._rpn_forward(qry_fmap, spp_fmaps)
-        merged_cls, merged_reg = self._merge_ways(rpn_cls, rpn_reg)
-        props, prop_scores, prop_valid = self.get_proposals(
-            merged_cls, merged_reg, batch.img_hw,
-            c.rpn_test_nms_pre, c.rpn_test_max_per_img,
-        )
-        P = props.shape[1]
+            qry_fmap, spp_fmaps = self._extract(batch)
+            with span("rpn"):
+                rpn_cls, rpn_reg = self._rpn_forward(qry_fmap, spp_fmaps)
+                merged_cls, merged_reg = self._merge_ways(rpn_cls, rpn_reg)
+                props, prop_scores, prop_valid = self.get_proposals(
+                    merged_cls, merged_reg, batch.img_hw,
+                    c.rpn_test_nms_pre, c.rpn_test_max_per_img,
+                )
+            P = props.shape[1]
 
-        spp_maps = spp_vecs_mask = None
-        if c.guidance:
-            spp_maps, spp_vecs_mask = self._count_spp(
-                spp_fmaps, batch.spp_boxes, batch.spp_masks
-            )
-        bbox_feats = self._bbox_feats(qry_fmap, props)
-        cls_final, reg_ways = self._relation_impl(bbox_feats, spp_maps)
-        probs = torch.softmax(cls_final.to(torch.float32), dim=-1)
-        scores = probs[..., :N]  # (B, P, N)
+            spp_maps = spp_vecs_mask = None
+            if c.guidance:
+                spp_maps, spp_vecs_mask = self._count_spp(
+                    spp_fmaps, batch.spp_boxes, batch.spp_masks
+                )
+            bbox_feats = self._bbox_feats(qry_fmap, props)
+            with span("box_head"):
+                cls_final, reg_ways = self._relation_impl(bbox_feats, spp_maps)
+                probs = torch.softmax(cls_final.to(torch.float32), dim=-1)
+                scores = probs[..., :N]  # (B, P, N)
 
-        hw = batch.img_hw
-        boxes = delta_decode(
-            props[:, :, None, :], reg_ways.to(torch.float32),
-            stds=c.rcnn_bbox_stds,
-            max_shape=(hw[:, 0, None, None], hw[:, 1, None, None]),
-        )  # (B, P, N, 4)
+                hw = batch.img_hw
+                boxes = delta_decode(
+                    props[:, :, None, :], reg_ways.to(torch.float32),
+                    stds=c.rcnn_bbox_stds,
+                    max_shape=(hw[:, 0, None, None], hw[:, 1, None, None]),
+                )  # (B, P, N, 4)
 
-        flat_scores = scores.reshape(B, P * N)
-        flat_boxes = boxes.reshape(B, P * N, 4)
-        flat_cls = torch.arange(N, dtype=torch.int32, device=props.device)
-        flat_cls = flat_cls.repeat(P)[None].expand(B, P * N)
-        flat_valid = prop_valid.repeat_interleave(N, dim=1) & (
-            flat_scores > c.rcnn_score_thr  # compared in f32, as in JAX
-        )
-        dt_boxes, dt_scores, dt_cats, _, dt_valid = batched_nms(
-            flat_boxes, flat_scores, flat_cls, flat_valid,
-            c.rcnn_nms_iou, c.rcnn_max_per_img, alive_fn=greedy_alive_cuda,
-        )
+                flat_scores = scores.reshape(B, P * N)
+                flat_boxes = boxes.reshape(B, P * N, 4)
+                flat_cls = torch.arange(N, dtype=torch.int32,
+                                        device=props.device)
+                flat_cls = flat_cls.repeat(P)[None].expand(B, P * N)
+                flat_valid = prop_valid.repeat_interleave(N, dim=1) & (
+                    flat_scores > c.rcnn_score_thr  # in f32, as in JAX
+                )
+                dt_boxes, dt_scores, dt_cats, _, dt_valid = batched_nms(
+                    flat_boxes, flat_scores, flat_cls, flat_valid,
+                    c.rcnn_nms_iou, c.rcnn_max_per_img,
+                    alive_fn=greedy_alive_cuda,
+                )
 
-        # mask branch on detections: gate by the detected class's support
-        # vector, evaluate the single class-agnostic mask channel
-        det_feats = self._bbox_feats(qry_fmap, dt_boxes)
-        if c.guidance:
-            C = spp_vecs_mask.shape[-1]
-            gate = torch.gather(
-                spp_vecs_mask, 1, dt_cats.long()[..., None].expand(-1, -1, C)
-            )  # (B, M, C)
-            det_feats = det_feats * gate[:, :, None, None, :].to(det_feats.dtype)
-        M = dt_boxes.shape[1]
-        dt_mask_logits = self._mask_head_impl(
-            det_feats.reshape(B * M, 7, 7, -1)
-        ).reshape(B, M, c.mask_size, c.mask_size)
+            # mask branch on detections: gate by the detected class's support
+            # vector, evaluate the single class-agnostic mask channel
+            with span("mask_head"):
+                det_feats = self._bbox_feats(qry_fmap, dt_boxes)
+                if c.guidance:
+                    C = spp_vecs_mask.shape[-1]
+                    gate = torch.gather(
+                        spp_vecs_mask, 1,
+                        dt_cats.long()[..., None].expand(-1, -1, C)
+                    )  # (B, M, C)
+                    det_feats = det_feats * gate[:, :, None, None, :].to(
+                        det_feats.dtype)
+                M = dt_boxes.shape[1]
+                dt_mask_logits = self._mask_head_impl(
+                    det_feats.reshape(B * M, 7, 7, -1)
+                ).reshape(B, M, c.mask_size, c.mask_size).to(torch.float32)
 
-        return {
-            "proposals": props,
-            "prop_scores": prop_scores,
-            "prop_valid": prop_valid,
-            "dt_boxes": dt_boxes,
-            "dt_scores": dt_scores,
-            "dt_cats": dt_cats,
-            "dt_valid": dt_valid,
-            "dt_mask_logits": dt_mask_logits.to(torch.float32),
-        }
+            return {
+                "proposals": props,
+                "prop_scores": prop_scores,
+                "prop_valid": prop_valid,
+                "dt_boxes": dt_boxes,
+                "dt_scores": dt_scores,
+                "dt_cats": dt_cats,
+                "dt_valid": dt_valid,
+                "dt_mask_logits": dt_mask_logits,
+            }
 
 
 def init_params(model: nn.Module, generator: torch.Generator) -> None:

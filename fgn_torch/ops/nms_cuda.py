@@ -11,7 +11,8 @@ repeats the kernel's order in torch, for the tests.
 
 The kernel holds the image's boxes and areas in shared memory where they
 fit (``_staged``); a larger Mp takes the same walk reading them from device
-memory, counted apart in ``greedy_alive_cuda.launches_unstaged``.
+memory, counted apart as ``k2.unstaged`` (``utils/profiling.py``'s
+``count``; the staged walk's as ``k2.staged``).
 ``_cluster_size`` picks the blocks per image.
 """
 
@@ -24,6 +25,7 @@ import torch
 from fgn_torch.ops import _build
 from fgn_torch.ops.flops import k2_ops, kernel_call
 from fgn_torch.ops.nms import _CHUNK, _greedy_alive
+from fgn_torch.utils.profiling import count
 
 # The walk kernel's dynamic shared memory (csrc/nms.cu::kWalkSmemMax): the
 # SM's 227 KB less 1 KB for its static tables.
@@ -117,12 +119,5 @@ def _greedy_keep(boxes_s, alive, iou_threshold: float, block: int):
         torch.cuda.current_stream(boxes_s.device).cuda_stream,
     )
     _build.check(lib, "fgn_nms_error_string", rc, "nms kernel")
-    if staged:
-        greedy_alive_cuda.launches += 1
-    else:
-        greedy_alive_cuda.launches_unstaged += 1
+    count("k2.staged" if staged else "k2.unstaged")
     return keep
-
-
-greedy_alive_cuda.launches = 0  # boxes staged in shared memory
-greedy_alive_cuda.launches_unstaged = 0  # boxes read from device memory

@@ -18,7 +18,8 @@ channel slice into shared memory once and reads every corner from there;
 ``_channel_tile`` picks Ct and ``_rois_per_block`` the ROI groups. A map
 whose slice does not fit at Ct = 8 (or whose data is not 16-byte aligned)
 takes the direct kernel, which reads the corners from device memory; its
-launches are counted apart, in ``roi_align_cuda.launches_direct``.
+launches are counted apart, as ``k1.direct`` (``utils/profiling.py``'s
+``count``; the staged kernel's as ``k1.staged``).
 ``_bin_lists`` and ``_roi_align_separable`` repeat the staged kernel's
 merged corner lists and order of summation in torch, for the tests.
 
@@ -28,8 +29,8 @@ gradient in shared memory, each word by one thread in a fixed order, and
 writes it once; ``_bwd_channel_tile`` picks Ct, ``_roi_align_bwd_ordered``
 repeats its order in torch. A map whose accumulator does not fit at
 Ct = 8 (or whose data is not 16-byte aligned) takes the atomics kernel;
-its launches are counted apart, in
-``roi_align_backward_cuda.launches_atomic``.
+its launches are counted apart, as ``k1_bwd.atomic`` (the staged
+kernel's as ``k1_bwd.staged``).
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ import torch
 
 from fgn_torch.ops import _build
 from fgn_torch.ops.flops import ROI_ALIGN_FLOPS, kernel_call
+from fgn_torch.utils.profiling import count
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -353,13 +355,13 @@ def _roi_align_forward(fmap, rois, out_size, spatial_scale, sampling_ratio,
         rc = lib.fgn_roi_align_forward(*args, stream)
         _build.check(lib, "fgn_roi_align_error_string", rc,
                      "roi_align direct kernel")
-        roi_align_cuda.launches_direct += 1
+        count("k1.direct")
         return out
     rc = lib.fgn_roi_align_forward_staged(
         *args, tile, _rois_per_block(B, C // tile, R, _sm_count(fmap.device)),
         stream)
     _build.check(lib, "fgn_roi_align_error_string", rc, "roi_align kernel")
-    roi_align_cuda.launches += 1
+    count("k1.staged")
     return out
 
 
@@ -421,7 +423,7 @@ def _roi_align_backward(g, rois, H: int, W: int, out_size: int,
     if tile is None:
         df = _backward_atomic(g, rois, H, W, out_size, S, spatial_scale,
                               aligned)
-        roi_align_backward_cuda.launches_atomic += 1
+        count("k1_bwd.atomic")
         return df
     df = torch.empty((B, H, W, C), dtype=g.dtype, device=g.device)
     lib = _build.load("roi_align")
@@ -432,7 +434,7 @@ def _roi_align_backward(g, rois, H: int, W: int, out_size: int,
     )
     _build.check(lib, "fgn_roi_align_error_string", rc,
                  "roi_align backward kernel")
-    roi_align_backward_cuda.launches += 1
+    count("k1_bwd.staged")
     return df
 
 
@@ -464,9 +466,3 @@ def roi_align_cuda(fmap, rois, out_size: int = 7, spatial_scale: float = 1.0,
         lambda: _RoIAlign.apply(fmap, rois, out_size, spatial_scale,
                                 sampling_ratio, aligned),
         lambda out: ROI_ALIGN_FLOPS * out.numel())
-
-
-roi_align_cuda.launches = 0  # the staged forward kernel
-roi_align_cuda.launches_direct = 0  # the direct forward kernel
-roi_align_backward_cuda.launches = 0  # the staged backward kernel
-roi_align_backward_cuda.launches_atomic = 0  # the atomics backward kernel

@@ -33,6 +33,7 @@ from fgn_torch.models.fgn import FGN, Draws
 from fgn_torch.parallel.mesh import (
     Mesh, all_gather_rows, global_sum, sum_gradients,
 )
+from fgn_torch.utils.profiling import span, unit
 
 
 def total_loss(losses: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -59,20 +60,26 @@ def make_train_step(model: FGN, optimizer: torch.optim.Optimizer,
 
     def step(batch: EpisodeBatch, generator: Optional[torch.Generator] = None,
              draws: Optional[Draws] = None) -> Dict[str, torch.Tensor]:
-        losses = model.train_forward(batch, generator=generator, draws=draws,
-                                     mesh=mesh)
-        total = total_loss(losses)
-        optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        sum_gradients(params, mesh)
-        optimizer.step()
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["loss_total"] = total.detach()
-        if mesh is not None and mesh.group is not None:
-            keys = [k for k in metrics if k.startswith("loss_")]
-            sums = global_sum(torch.stack([metrics[k] for k in keys]), mesh)
-            metrics.update(zip(keys, sums.unbind()))
-        return metrics
+        with unit("step"):
+            with span("forward"):
+                losses = model.train_forward(batch, generator=generator,
+                                             draws=draws, mesh=mesh)
+                total = total_loss(losses)
+            with span("optimizer"):
+                optimizer.zero_grad(set_to_none=True)
+            with span("backward"):
+                total.backward()
+                sum_gradients(params, mesh)
+            with span("optimizer"):
+                optimizer.step()
+            metrics = {k: v.detach() for k, v in losses.items()}
+            metrics["loss_total"] = total.detach()
+            if mesh is not None and mesh.group is not None:
+                keys = [k for k in metrics if k.startswith("loss_")]
+                sums = global_sum(torch.stack([metrics[k] for k in keys]),
+                                  mesh)
+                metrics.update(zip(keys, sums.unbind()))
+            return metrics
 
     return step
 

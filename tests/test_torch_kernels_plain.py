@@ -45,6 +45,7 @@ from fgn_torch.ops.roi_align_cuda import (
     _roi_align_separable, _roi_axes, _rois_per_block, roi_align_backward_cuda,
     roi_align_cuda,
 )
+from fgn_torch.utils.profiling import counts
 
 torch.set_num_threads(2)
 
@@ -121,11 +122,11 @@ def test_roi_align_plain_bf16_in_out(rng):
 
 def test_roi_align_wrapper_takes_plain_version_on_cpu(rng):
     fmap = _t(rng.rand(2, 12, 14, 8).astype(np.float32))
-    before = roi_align_cuda.launches
+    before = counts()
     got = roi_align_cuda(fmap, _t(ROIS), 7, spatial_scale=0.5)
     assert torch.equal(got, _roi_align_plain(fmap, _t(ROIS), 7,
                                              spatial_scale=0.5))
-    assert roi_align_cuda.launches == before
+    assert counts() == before
 
 
 def test_roi_align_wrapper_rejects_other_devices():
@@ -284,11 +285,11 @@ def test_roi_axes_divide_as_ieee(rng, O, aligned):
             side = side.clamp(min=1.0)
         want = (side.double() / O).float()
         assert torch.equal(got, want)
-    before = (roi_align_cuda.launches, roi_align_cuda.launches_direct)
+    before = counts()
     fmap = _t(rng.rand(2, 30, 30, 8).astype(np.float32))
     got = _roi_align_forward(fmap, rois, O, 1 / 16, 2, aligned)
     assert torch.equal(got, _roi_align_plain(fmap, rois, O, 1 / 16, 2, aligned))
-    assert (roi_align_cuda.launches, roi_align_cuda.launches_direct) == before
+    assert counts() == before
 
 
 def _jax_vjp(fmap, rois, cot, out_size, aligned, roi_chunk, **kw):
@@ -363,7 +364,7 @@ def test_roi_align_autograd_uses_plain_bwd_on_cpu(rng):
     fmap = _t(rng.rand(2, 12, 14, 8).astype(np.float32)).requires_grad_()
     rois = _t(ROIS).requires_grad_()
     cot = _t(rng.randn(2, 6, 7, 7, 8).astype(np.float32))
-    before = (roi_align_cuda.launches, roi_align_backward_cuda.launches)
+    before = counts()
     out = roi_align_cuda(fmap, rois, 7, spatial_scale=0.5)
     out.backward(cot)
     want = _roi_align_plain_bwd(cot, _t(ROIS), 12, 14, torch.float32, 7,
@@ -372,7 +373,7 @@ def test_roi_align_autograd_uses_plain_bwd_on_cpu(rng):
     assert torch.equal(roi_align_backward_cuda(cot, _t(ROIS), 12, 14, 7,
                                                spatial_scale=0.5), want)
     assert rois.grad is None
-    assert (roi_align_cuda.launches, roi_align_backward_cuda.launches) == before
+    assert counts() == before
     with pytest.raises(ValueError, match="unsupported device"):
         roi_align_backward_cuda(torch.zeros((1, 1, 7, 7, 8), device="meta"),
                                 torch.zeros((1, 1, 4), device="meta"), 4, 4)
@@ -421,10 +422,10 @@ def test_greedy_alive_plain_degenerate(case):
 
 def test_nms_wrapper_takes_plain_version_on_cpu():
     boxes, alive = _sorted_boxes(3, 2, 256, 256)
-    before = greedy_alive_cuda.launches
+    before = counts()
     got = greedy_alive_cuda(_t(boxes), _t(alive), 0.7)
     assert torch.equal(got, _greedy_alive(_t(boxes), _t(alive), 0.7))
-    assert greedy_alive_cuda.launches == before
+    assert counts() == before
     # as the alive_fn of nms_padded, M not a multiple of 128
     scores = torch.rand(2, 200, generator=torch.Generator().manual_seed(0))
     valid = torch.ones(2, 200, dtype=torch.bool)
@@ -555,8 +556,9 @@ def test_cluster_size_rule(B, mp, want):
 
 
 def test_nms_wrapper_rejects_other_devices():
+    before = counts()
     boxes = torch.zeros((1, 128, 4), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         greedy_alive_cuda(boxes, torch.zeros((1, 128), dtype=torch.bool,
                                              device="meta"), 0.5)
-    assert greedy_alive_cuda.launches_unstaged == 0
+    assert counts() == before

@@ -23,9 +23,9 @@ from fgn_tpu.ops.roi_align import roi_align as j_roi_align
 from fgn_tpu.ops.roi_align_pallas import roi_align_pallas
 from fgn_torch.ops.roi_align_cuda import (
     _ROI_CHUNK, _SMEM_MAX, _bwd_channel_tile, _bwd_smem, _bwd_threads,
-    _roi_align_bwd_ordered, _roi_align_plain_bwd, roi_align_backward_cuda,
-    roi_align_cuda,
+    _roi_align_bwd_ordered, _roi_align_plain_bwd, roi_align_cuda,
 )
+from fgn_torch.utils.profiling import counts
 
 torch.set_num_threads(2)
 
@@ -202,13 +202,10 @@ def test_bwd_autograd_on_cpu_launches_nothing(rng):
     fmap = _t(rng.rand(2, 12, 14, 8).astype(np.float32)).requires_grad_()
     rois = _t(ROIS).requires_grad_()
     cot = _t(rng.randn(2, 6, 7, 7, 8).astype(np.float32))
-    bwd = roi_align_backward_cuda
-    before = (roi_align_cuda.launches, roi_align_cuda.launches_direct,
-              bwd.launches, bwd.launches_atomic)
+    before = counts()
     roi_align_cuda(fmap, rois, 7, spatial_scale=0.5).backward(cot)
     want = _roi_align_plain_bwd(cot, _t(ROIS), 12, 14, torch.float32, 7,
                                 spatial_scale=0.5)
     assert torch.equal(fmap.grad, want)
     assert rois.grad is None
-    assert (roi_align_cuda.launches, roi_align_cuda.launches_direct,
-            bwd.launches, bwd.launches_atomic) == before
+    assert counts() == before

@@ -12,7 +12,7 @@ import torch
 
 from fgn_tpu.models import viz as jviz
 from fgn_torch.models import viz
-from fgn_torch.utils.profiling import StepTimer, device_trace
+from fgn_torch.utils.profiling import device_trace
 
 torch.set_num_threads(2)
 
@@ -44,15 +44,9 @@ def test_renderers_byte_identical(tmp_path, name, seed):
 
 def test_device_trace_and_step_timer(tmp_path):
     x = torch.randn(64, 64)
-    timer = StepTimer(alpha=0.5)
     with device_trace(str(tmp_path / "trace")):
-        timer.start()
-        y = {"out": [x @ x, (x * 2,)]}
-        dt = timer.stop(y)
-    assert dt > 0 and timer.ema_ms == dt
-    timer.start()
-    timer.stop()
-    assert timer.ema_ms is not None and timer.ema_ms > 0
+        y = x @ x
+    assert y.shape == (64, 64)
     files = os.listdir(tmp_path / "trace")
     assert files == [f"trace_{os.getpid()}.json"]
     with open(tmp_path / "trace" / files[0]) as f:
