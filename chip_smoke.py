@@ -11,7 +11,13 @@ does not fit, its atomics kernel), and the greedy-NMS keep mask (K2), on
 edge cases and at the shapes of the main paths; K1's staged kernel is
 timed beside the direct one, K1-bwd's beside the atomics one, and K2's
 walk beside its earlier bitmask kernel (whose two launches are also timed
-apart), at every main-path call. Then it drives the three paths through
+apart), at every main-path call. GroupNorm with its epilogue (K3) is held
+against its plain version at every GroupNorm call of the OMNIISEG b8
+forward (``benchmark/configs/omniiseg-n3k3-480.json``: both routes, every
+epilogue) and at f32 twins, timed beside its byte bound, the plain version
+and the library's ``F.group_norm``, and its launches counted a forward
+(b8, b1, COCO2VOC b4: one a GroupNorm call) and a train step (none: every
+call is recorded by autograd). Then it drives the three paths through
 the kernels with launch counters:
 
   * episodic inference, ``FGN.test_forward`` (R50-C4, N3K3, 480 px, batch
@@ -87,7 +93,8 @@ dp bring the engine phase along, bench the main path, COCO2VOC serving and
 train phases); the default, and the full check, is all.
 
 With ``--profile`` it also prints where the device time of one flagship
-forward and of one train step goes (torch.profiler), K1's staged kernel
+forward and of one train step goes (torch.profiler), K3's routes at other
+block sizes, tiles and apply blocks, K1's staged kernel
 at other channel tiles and ROI groups than its rules pick, K1-bwd's staged
 kernel at other channel tiles and block sizes, and K2's walk at every
 cluster size.
@@ -96,7 +103,7 @@ Prints its measurements on earlier lines, each phase's wall time on a
 ``phase <name>: <s> s`` line and the bench's JSON line; the line before the
 last is one JSON object of the kernels, each with every number from one
 path (its ``path``: K1 and K2 from evaluation, K1-bwd from the engine's
-training; ``launches_bench``: a forward's (a train step's) launches in each
+training, K3 from its phase: its largest call, and a b8 forward's sums; ``launches_bench``: a forward's (a train step's) launches in each
 bench workload;
 ``launches_dp``: each rank's launches in ``phase_dp``'s flagship run;
 ``launches_coco2voc``: each run's launches in ``phase_cocovoc``, K2's
@@ -583,6 +590,312 @@ def phase_nms(dev, B=8, M=4096):
                      f"{int(keep.sum())}/{int(alive.sum())} kept")
     print(f"K2 nms: {cases} NMS cases exact; keep masks exact: "
           + "; ".join(masks), flush=True)
+
+
+# K3: GroupNorm with its epilogue (csrc/group_norm.cu) ---------------------
+
+GN_COUNTERS = ("gn.onepass", "gn.split", "gn.autograd")
+GN_EPS = 1e-5
+
+
+def bench_cfg(name, **kw):
+    """The model of ``benchmark/configs/<name>.json`` as an FGNConfig."""
+    from pathlib import Path
+
+    from fgn_torch.config import FGNConfig
+
+    path = Path(__file__).resolve().parent / "benchmark" / "configs"
+    with open(path / f"{name}.json") as f:
+        model = json.load(f)["model"]
+    return FGNConfig(**{**{k: tuple(v) if isinstance(v, list) else v
+                           for k, v in model.items()}, **kw})
+
+
+def gn_counts():
+    from fgn_torch.utils.profiling import counts
+
+    now = counts()
+    return {k: now.get(k, 0) for k in GN_COUNTERS}
+
+
+def capture_gn_calls(run):
+    """The GroupNorm calls of ``run()`` in order, each ((N, C, H, W), dtype,
+    groups, with a residual, with a ReLU), run through the plain version
+    (no K3 launch)."""
+    import fgn_torch.models.resnet as resnet
+    from fgn_torch.ops.group_norm_cuda import group_norm_plain
+
+    calls = []
+
+    def rec(x, G, w, b, eps, dtype, residual=None, relu=False):
+        calls.append((tuple(x.shape), x.dtype, G, residual is not None,
+                      bool(relu)))
+        return group_norm_plain(x, G, w, b, eps, dtype, residual, relu)
+
+    with mock.patch.object(resnet, "group_norm", rec):
+        run()
+    return calls
+
+
+def k3_inputs(gen, shape, dtype, with_res, dev):
+    """A channels_last x like a convolution's output (each channel its own
+    scale and offset), a residual, and GroupNorm's weight and bias."""
+    import torch
+
+    N, C, H, W = shape
+    scale = 0.5 + 1.5 * torch.rand(C, generator=gen)
+    shift = torch.randn(C, generator=gen)
+    x = (torch.randn((N, H, W, C), generator=gen) * scale + shift).to(dtype)
+    res = (torch.randn((N, H, W, C), generator=gen).to(dtype)
+           if with_res else None)
+    w = 1 + 0.3 * torch.randn(C, generator=gen)
+    b = 0.2 * torch.randn(C, generator=gen)
+
+    def cl(t):  # NCHW view of NHWC memory, on the card
+        return None if t is None else t.to(dev).permute(0, 3, 1, 2)
+
+    return cl(x), cl(res), w.to(dev), b.to(dev)
+
+
+def k3_hold(tag, got, want, y, dtype):
+    """K3's output against the plain version's on the same inputs. y is the
+    f32 GroupNorm before any rounding. The kernel sums in another order
+    than the library, so its mean and rstd differ in the last f32 bits: in
+    bf16 an element whose f32 value lies that close to a rounding boundary
+    rounds the other way, one bf16 ulp of the GroupNorm value, and with a
+    residual one more of the sum's; so each element is held within
+    2^-7 (|y| + |out|) (+ 1e-5 of the largest |y|, for values near 0), and
+    at most 1e-3 of the elements may differ at all. In f32 every element may
+    differ, within 1e-5 (|y| + |out|) + 1e-6 max|y|. → (max abs error,
+    share of elements that differ)."""
+    import torch
+
+    gf, wf, ya = got.float(), want.float(), y.abs()
+    d = (gf - wf).abs()
+    ymax = float(ya.max())
+    if dtype == torch.bfloat16:
+        tol = 2.0 ** -7 * (ya + wf.abs()) + 1e-5 * ymax
+    else:
+        tol = 1e-5 * (ya + wf.abs()) + 1e-6 * ymax
+    share = float((got != want).float().mean())
+    bad = int((d > tol).sum())
+    check(bad == 0, f"K3 {tag}: {bad} elements beyond the tolerance (max "
+                    f"abs error {float(d.max()):.3g})")
+    if dtype == torch.bfloat16:
+        check(share <= 1e-3, f"K3 {tag}: {share:.2e} of the elements differ")
+    return float(d.max()), share
+
+
+def k3_record(gen, call, dev, timed=True):
+    """K3 at one call's shape, dtype and epilogue: the route it lands on,
+    two launches bit for bit, held against the plain version
+    (``k3_hold``), and timed on the card alone (``device_ms``: the input
+    stays in L2 between launches where it fits, as the convolution that
+    wrote it leaves it) beside the plain version (the composition the model
+    ran before K3), the library's ``F.group_norm`` alone on x and the byte
+    bound (x and the residual read once, out written once, 3.35 TB/s).
+    → its record."""
+    import torch
+    import torch.nn.functional as F
+
+    from fgn_torch.ops.group_norm_cuda import (
+        _plan, _sm_count, group_norm, group_norm_plain,
+    )
+
+    shape, dtype, G, with_res, relu = call
+    N, C, H, W = shape
+    x, res, w, b = k3_inputs(gen, shape, dtype, with_res, dev)
+    plan = _plan(N, H * W, C, G, x.element_size(), _sm_count(dev.index or 0))
+    with torch.no_grad():
+        def kern():
+            return group_norm(x, G, w, b, GN_EPS, dtype, res, relu)
+
+        got, moved = moved_by(kern, GN_COUNTERS)
+        want_moved = tuple(int(k == "gn." + plan.route) for k in GN_COUNTERS)
+        check(moved == want_moved, f"K3 {shape} moved {moved}, want the "
+                                   f"{plan.route} route")
+        check(got.is_contiguous(memory_format=torch.channels_last)
+              and got.stride() == x.stride(), f"K3 {shape}: out's strides")
+        again = kern()
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"K3 {shape}: two launches differ")
+        want = group_norm_plain(x, G, w, b, GN_EPS, dtype, res, relu)
+        y = F.group_norm(x.float(), G, w, b, GN_EPS)
+        tag = (f"{tuple(shape)} {str(dtype)[6:]} "
+               f"{'res+' if with_res else ''}{'relu' if relu else 'none'}")
+        err, share = k3_hold(tag, got, want, y, dtype)
+        del again, want, y
+        rec = dict(shape=tuple(shape), dtype=str(dtype)[6:], residual=with_res,
+                   relu=relu, route=plan.route, max_abs_err=err,
+                   differ=share)
+        if timed:
+            wl, bl = w.to(dtype), b.to(dtype)
+            rec["ms"] = device_ms(kern)
+            rec["plain_ms"] = device_ms(
+                lambda: group_norm_plain(x, G, w, b, GN_EPS, dtype, res, relu))
+            rec["library_ms"] = device_ms(
+                lambda: F.group_norm(x, G, wl, bl, GN_EPS))
+            nbytes = x.numel() * x.element_size() * (3 if with_res else 2)
+            rec["bound_ms"] = (nbytes + 2 * C * 4) / HBM_BYTES_S * 1e3
+            print(f"K3 {tag}: {plan.route}, err {err:.3g} ({share:.1e} of the "
+                  f"elements differ); kernel {rec['ms']:.4f} ms, bound "
+                  f"{rec['bound_ms']:.4f} ms (bytes; "
+                  f"{100 * rec['bound_ms'] / rec['ms']:.1f} % of it), plain "
+                  f"{rec['plain_ms']:.4f} ms, library F.group_norm "
+                  f"{rec['library_ms']:.4f} ms", flush=True)
+        else:
+            print(f"K3 {tag}: {plan.route}, err {err:.3g} ({share:.1e} of the "
+                  f"elements differ)", flush=True)
+    return rec
+
+
+def k3_forward_counts(tag, cfg, B, H, W, S, dev):
+    """K3's launches in one ``test_forward`` (counters set to 0 just before,
+    read just after), each GroupNorm call of the forward one launch on the
+    route ``_plan`` gives it. → (launches, the forward's GroupNorm calls)."""
+    import torch
+
+    from fgn_torch.data.batching import to_device, toy_batch
+    from fgn_torch.models.fgn import build_model
+    from fgn_torch.ops.group_norm_cuda import _plan, _sm_count
+
+    model = build_model(cfg, dev, seed=0)
+    batch = to_device(toy_batch(B=B, H=H, W=W, N=cfg.n_ways, K=cfg.k_shots,
+                                S=S), dev)
+    model.test_forward(batch)
+    torch.cuda.synchronize()
+    zero_counts()
+    model.test_forward(batch)
+    torch.cuda.synchronize()
+    got = gn_counts()
+    calls = capture_gn_calls(lambda: model.test_forward(batch))
+    sms = _sm_count(dev.index or 0)
+    want = {k: 0 for k in GN_COUNTERS}
+    for (N, C, h, w), dt, G, _, _ in calls:
+        want["gn." + _plan(N, h * w, C, G, 2 if dt != torch.float32 else 4,
+                           sms).route] += 1
+    check(got == want, f"K3 {tag}: launches {got}, want {want} "
+                       f"({len(calls)} GroupNorm calls)")
+    print(f"K3 {tag} b{B} {H}x{W}: {len(calls)} GroupNorm calls a forward, "
+          f"K3 launches {got}", flush=True)
+    del model, batch
+    torch.cuda.empty_cache()
+    return got, calls
+
+
+def k3_sweep(calls, gen, dev):
+    """``--profile``: K3's device ms over a forward's calls of each route,
+    the split route at other block sizes, statistics tiles and apply blocks
+    an SM than ``_plan`` picks, the onepass route at both block sizes."""
+    import collections
+
+    import torch
+
+    from fgn_torch.ops.group_norm_cuda import (
+        _SMEM_MAX, Plan, _launch, _plan, _sm_count, _stats_smem,
+    )
+
+    sms = _sm_count(dev.index or 0)
+    uniq = collections.Counter(calls)
+    inputs = {c: k3_inputs(gen, c[0], c[1], c[3], dev) for c in uniq}
+
+    def total(route, plan_of):
+        t = 0.0
+        with torch.no_grad():
+            for c, n in uniq.items():
+                (N, C, H, W), dt, G, _, relu = c
+                e = 2 if dt == torch.bfloat16 else 4
+                if _plan(N, H * W, C, G, e, sms).route != route:
+                    continue
+                plan = plan_of(N, H * W, C, G, e)
+                if plan is None:
+                    return None
+                x, res, w, b = inputs[c]
+                t += n * device_ms(
+                    lambda: _launch(x, G, w, b, GN_EPS, dt, res, relu, plan),
+                    iters=3)
+        return t
+
+    for threads in (256, 512):
+        for tile in (24, 48, 96):
+            for per_sm in (2, 4, 8):
+                t = total("split", lambda N, HW, C, G, e: _plan(
+                    N, HW, C, G, e, sms, tile * 1024, per_sm, threads))
+                print(f"K3 sweep split: {threads} threads, {tile} KB tiles, "
+                      f"{per_sm} apply blocks an SM: {t:.4f} ms a forward",
+                      flush=True)
+    for threads in (256, 512):
+        def one(N, HW, C, G, e, threads=threads):
+            smem = HW * C * e + _stats_smem(C, G, e, threads)
+            if C * e // 16 > threads or smem > _SMEM_MAX:
+                return None
+            return Plan("onepass", threads, smem)
+
+        t = total("onepass", one)
+        print(f"K3 sweep onepass: {threads} threads: "
+              + ("does not fit" if t is None else f"{t:.4f} ms a forward"),
+              flush=True)
+    del inputs
+    torch.cuda.empty_cache()
+
+
+def phase_group_norm(dev, gpu, profile=False):
+    """K3 at every GroupNorm call of the OMNIISEG b8 forward (the routes,
+    every epilogue the model uses) and at f32 twins of both routes, held
+    against the plain version and timed; its launches a forward at b8, b1
+    and COCO2VOC b4, and a train step's (all through autograd); with
+    ``profile``, ``k3_sweep``. → the kernels line's record."""
+    import torch
+
+    from fgn_torch import bench
+
+    gen = torch.Generator().manual_seed(18)
+    omni = bench_cfg("omniiseg-n3k3-480")
+    launches, calls = k3_forward_counts("omniiseg", omni, 8, 480, 480, 128,
+                                        dev)
+    uniq = list(dict.fromkeys(calls))
+    recs = {c: k3_record(gen, c, dev) for c in uniq}
+    for shape in ((16, 512, 7, 7), (16, 1024, 7, 7), (2, 32, 240, 240)):
+        for with_res, relu in ((False, False), (False, True), (True, True)):
+            k3_record(gen, (shape, torch.float32, 32, with_res, relu), dev,
+                      timed=False)
+    tot = {k: sum(recs[c][k] for c in calls)
+           for k in ("ms", "bound_ms", "plain_ms", "library_ms")}
+    by_route = {r: sum(recs[c]["ms"] for c in calls if recs[c]["route"] == r)
+                for r in ("onepass", "split")}
+    print(f"K3 a b8 forward ({len(calls)} calls): kernels {tot['ms']:.3f} ms "
+          f"(onepass {by_route['onepass']:.3f}, split {by_route['split']:.3f}), "
+          f"bound {tot['bound_ms']:.3f} ms "
+          f"({100 * tot['bound_ms'] / tot['ms']:.1f} %), plain "
+          f"{tot['plain_ms']:.3f} ms, library F.group_norm alone "
+          f"{tot['library_ms']:.3f} ms; on {gpu}", flush=True)
+    if profile:
+        k3_sweep(calls, gen, dev)
+    b1, _ = k3_forward_counts("omniiseg", omni, 1, 480, 480, 128, dev)
+    c2v, _ = k3_forward_counts(
+        "coco2voc", bench_cfg("coco2voc-n3k3-800"), 4, 800, 1088, 128, dev)
+    model, _, step, batch, tgen = bench.make_train(2, dev)
+    step(batch, tgen)
+    torch.cuda.synchronize()
+    zero_counts()
+    step(batch, tgen)
+    torch.cuda.synchronize()
+    train = gn_counts()
+    check(train["gn.onepass"] == train["gn.split"] == 0
+          and train["gn.autograd"] > 0,
+          f"K3 in a train step: {train}, want every call through autograd")
+    print(f"K3 a train step (flagship b2): {train}", flush=True)
+    del model, step, batch
+    torch.cuda.empty_cache()
+    big = max(uniq, key=lambda c: math.prod(c[0]))
+    return dict(
+        recs[big], name="group_norm", source="fgn_torch/csrc/group_norm.cu",
+        replaces="none (XLA fuses flax nn.GroupNorm)",
+        path="OMNIISEG b8 forward, " + ", ".join(
+            f"{k} {v:.4f}" for k, v in tot.items()) + " ms a forward",
+        launches=launches, route="cuda", bound_by="bytes",
+        launches_bench={"omniiseg_b8": launches, "omniiseg_b1": b1,
+                        "coco2voc_b4": c2v, "train_step": train})
 
 
 def flagship_cfg(**kw):
@@ -3438,7 +3751,8 @@ PRINTED_ITERS = 5
 # The phases in the order they run; ``--phases`` picks some (the eval,
 # runner and dp phases take the engine's split and model config, so each
 # brings the engine phase with it).
-PHASES = ("roi_align", "roi_align_backward", "nms", "main_path", "plain_twin",
+PHASES = ("roi_align", "roi_align_backward", "nms", "group_norm", "main_path",
+          "plain_twin",
           "coco2voc_serve", "train", "bench", "train_twin", "engine", "eval",
           "runner", "cocovoc", "dp")
 KERNEL_KEYS = ("name", "route", "source", "replaces", "path", "launches",
@@ -3542,6 +3856,10 @@ def main(argv=None):
     if "nms" in want:
         phase_nms(dev)
         phase_done("nms")
+    recs = {}
+    if "group_norm" in want:
+        recs["group_norm"] = phase_group_norm(dev, gpu, args.profile)
+        phase_done("group_norm")
     if "main_path" in want:
         model, batch, calls, bench_res["flagship"] = phase_main_path(
             dev, gpu)
@@ -3607,7 +3925,7 @@ def main(argv=None):
     print(cv2_line(), flush=True)
     from fgn_torch.data.digests import CONFIG
 
-    recs, launches = {}, {}
+    launches = {}
     with tempfile.TemporaryDirectory() as work:
         if "engine" in want:
             (cfg, mcfg, val, engine_counts,
@@ -3655,6 +3973,8 @@ def main(argv=None):
                               path="eval pass 1, " + CONFIG)
         del eval_calls
     for name, rec in recs.items():
+        if name == "group_norm":  # its phase counts its launches
+            continue
         if "bench" in want:  # a forward's (a train step's) launches
             rec["launches_bench"] = {w: r["launches"][name]
                                      for w, r in bench_res.items()
@@ -3677,7 +3997,8 @@ def main(argv=None):
     print(f"phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = [{k: recs[name][k] for k in KERNEL_KEYS if k in recs[name]}
-               for name in ("roi_align", "roi_align_backward", "nms_keep")
+               for name in ("roi_align", "roi_align_backward", "nms_keep",
+                            "group_norm")
                if name in recs]
     print(gpu_line())
     print(json.dumps({"kernels": kernels}))

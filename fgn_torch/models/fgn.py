@@ -313,8 +313,7 @@ class FGN(nn.Module):
             x = r_roi[:, :, None] + r_spp[:, None]  # (B, R, N, 7, 7, 1024)
         else:
             x = r_roi[:, :, None]
-        x = self.rel_gn(_nchw(x.reshape(B * R * N, 7, 7, 1024)))
-        x = F.relu(x)
+        x = self.rel_gn(_nchw(x.reshape(B * R * N, 7, 7, 1024)), relu=True)
         pooled = x.mean(dim=(2, 3)).reshape(B, R, N, 1024)
         cls = self.fc_cls(pooled)  # (B, R, N, 2) = (bg, fg) per way
         reg = self.fc_reg(pooled)  # (B, R, N, 4)

@@ -6,7 +6,9 @@ ones (``conv1``, ``bn1``, ``layer{1..3}.block{i}.{conv,bn}{1..3}``,
 name for name.
 
 Public ``forward``s take and return NHWC tensors, as the JAX modules do;
-inside, convolutions run on the NCHW view of that memory (channels_last).
+inside, convolutions run on the NCHW view of that memory (channels_last),
+an input of other strides made contiguous first: the GroupNorm kernel
+takes channels_last maps only.
 Params are held in float32 and cast to the compute dtype at use, as
 flax's ``dtype=`` does. Convolutions pad like flax's ``'SAME'``, which is
 asymmetric for stride 2 (lo = total // 2): symmetric torch padding would
@@ -18,6 +20,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from fgn_torch.ops.group_norm_cuda import group_norm
 
 
 def _same_pads(size: int, k: int, s: int):
@@ -54,7 +58,9 @@ class Conv2d(nn.Module):
 
 class GroupNorm(nn.Module):
     """flax ``nn.GroupNorm``: statistics and affine in f32 (f64 for an f64
-    input), result cast to the compute dtype."""
+    input), result cast to the compute dtype; then ``+ residual`` and a
+    ReLU where asked. On the card one kernel does all of it
+    (``ops/group_norm_cuda.py``, K3)."""
 
     def __init__(self, num_groups, features, eps=1e-5, dtype=torch.float32):
         super().__init__()
@@ -64,26 +70,27 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, x):  # NCHW
-        dt = torch.promote_types(x.dtype, torch.float32)
-        return F.group_norm(
-            x.to(dt), self.num_groups, self.weight.to(dt), self.bias.to(dt),
-            self.eps,
-        ).to(self.dt)
+    def forward(self, x, residual=None, relu=False):  # NCHW
+        return group_norm(x, self.num_groups, self.weight, self.bias,
+                          self.eps, self.dt, residual, relu)
 
 
 class FrozenAffine(nn.Module):
-    """Per-channel scale + bias (a folded BatchNorm), in the input dtype."""
+    """Per-channel scale + bias (a folded BatchNorm), in the input dtype;
+    then ``+ residual`` and a ReLU where asked, as ``GroupNorm``."""
 
     def __init__(self, features):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, x):  # NCHW
+    def forward(self, x, residual=None, relu=False):  # NCHW
         dt = x.dtype
-        return (x * self.weight.to(dt)[:, None, None]
-                + self.bias.to(dt)[:, None, None])
+        y = (x * self.weight.to(dt)[:, None, None]
+             + self.bias.to(dt)[:, None, None])
+        if residual is not None:
+            y = y + residual
+        return F.relu(y) if relu else y
 
 
 def make_norm(norm: str, features: int, dtype=torch.float32):
@@ -118,15 +125,14 @@ class Bottleneck(nn.Module):
             self.ds_bn = make_norm(norm, out_ch, dtype)
 
     def forward(self, x):  # NCHW
+        y = self.bn1(self.conv1(x), relu=True)
+        y = self.conv3(self.bn2(self.conv2(y), relu=True))
         identity = x
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
         if self.has_downsample:
             if self.avg_down and self.stride > 1:
                 identity = F.avg_pool2d(identity, self.stride, self.stride)
             identity = self.ds_bn(self.ds_conv(identity))
-        return F.relu(y + identity)
+        return self.bn3(y, identity, relu=True)
 
 
 class ResLayer(nn.Module):
@@ -185,13 +191,13 @@ class ResNetC4(nn.Module):
                                dtype=dtype)
 
     def forward(self, x):  # NHWC
-        x = _nchw(x)
+        x = _nchw(x.contiguous())
         if self.deep_stem:
-            x = F.relu(self.stem_bn1(self.stem_conv1(x)))
-            x = F.relu(self.stem_bn2(self.stem_conv2(x)))
-            x = F.relu(self.stem_bn3(self.stem_conv3(x)))
+            x = self.stem_bn1(self.stem_conv1(x), relu=True)
+            x = self.stem_bn2(self.stem_conv2(x), relu=True)
+            x = self.stem_bn3(self.stem_conv3(x), relu=True)
         else:
-            x = F.relu(self.bn1(self.conv1(x)))
+            x = self.bn1(self.conv1(x), relu=True)
         x = F.max_pool2d(x, 3, 2, padding=1)
         x = self.layer3(self.layer2(self.layer1(x)))
         if self.frozen:
@@ -209,4 +215,4 @@ class SharedRes5(nn.Module):
                              dtype=dtype)
 
     def forward(self, x):  # NHWC
-        return _nhwc(self.res5(_nchw(x))).contiguous()
+        return _nhwc(self.res5(_nchw(x.contiguous()))).contiguous()

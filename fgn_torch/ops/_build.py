@@ -51,6 +51,12 @@ _SIGNATURES = {
             [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P], _I),
         "fgn_nms_error_string": ([_I], ctypes.c_char_p),
     },
+    "group_norm": {
+        "fgn_group_norm": (
+            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
+             _P], _I),
+        "fgn_group_norm_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -31,7 +31,9 @@ when a summary is asked for; the last ``KEEP`` units are kept.
 
 ``count(name, n)`` is an always-on process counter: the kernels' wrappers
 count their launches by route (``k1.staged``, ``k1.direct``,
-``k1_bwd.staged``, ``k1_bwd.atomic``, ``k2.staged``, ``k2.unstaged``).
+``k1_bwd.staged``, ``k1_bwd.atomic``, ``k2.staged``, ``k2.unstaged``,
+``gn.onepass``, ``gn.split``; ``gn.autograd`` counts the GroupNorm calls
+that took the library composition because autograd records them).
 """
 
 from __future__ import annotations
