@@ -42,13 +42,15 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from fgn_torch.config import FGNConfig
+from fgn_torch.config.vit import ViTDetConfig
 from fgn_torch.data.batching import EpisodeBatch, mask_to_float, to_device
 from fgn_torch.models.losses import (
     accuracy_balanced, sigmoid_bce, smooth_l1, softmax_ce,
 )
 from fgn_torch.models.resnet import (
-    Conv2d, GroupNorm, ResNetC4, SharedRes5, _nchw, _nhwc,
+    Conv2d, GroupNorm, Linear, ResNetC4, SharedRes5, _nchw, _nhwc,
 )
+from fgn_torch.models.vit import ViT
 from fgn_torch.ops.anchors import anchor_inside_flags, generate_anchors
 from fgn_torch.ops.assign import max_iou_assign
 from fgn_torch.ops.boxes import delta_decode, delta_encode
@@ -71,20 +73,6 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 # asks for ("rpn", (B, N, 2, M)) and then ("rcnn", (B, 2, G + P)); index 0
 # of the axis of size 2 ranks the positives, index 1 the negatives.
 Draws = Callable[[str, Tuple[int, ...]], torch.Tensor]
-
-
-class Linear(nn.Module):
-    """flax ``nn.Dense``: weight (out, in) held in f32, cast at use."""
-
-    def __init__(self, cin, cout, dtype=torch.float32):
-        super().__init__()
-        self.dt = dtype
-        self.weight = nn.Parameter(torch.empty(cout, cin))
-        self.bias = nn.Parameter(torch.zeros(cout))
-
-    def forward(self, x):
-        return F.linear(x.to(self.dt), self.weight.to(self.dt),
-                        self.bias.to(self.dt))
 
 
 class ConvTranspose2d(nn.Module):
@@ -112,7 +100,11 @@ def _conv1x1_nhwc(conv: Conv2d, x):
 
 
 class FGN(nn.Module):
-    def __init__(self, cfg: FGNConfig):
+    """``backbone``: None for ResNet-50-C4 (``ResNetC4``), or a
+    ``ViTDetConfig`` for ViTDet's plain ViT (``models/vit.py``), whose
+    last map takes the C4 map's place: 1024 channels at stride 16."""
+
+    def __init__(self, cfg: FGNConfig, backbone: Optional[ViTDetConfig] = None):
         super().__init__()
         self.cfg = c = cfg
         dt = self.dt = _DTYPES[c.compute_dtype]
@@ -125,10 +117,16 @@ class FGN(nn.Module):
             raise ValueError(f"FGNConfig.remat: unknown blocks {sorted(unknown)}")
         A = c.num_anchors
         C = c.feat_channels
-        self.backbone = ResNetC4(
-            norm=c.backbone_norm, frozen=c.backbone_frozen,
-            deep_stem=c.deep_stem, avg_down=c.avg_down, dtype=dt,
-        )
+        if backbone is None:
+            self.backbone = ResNetC4(
+                norm=c.backbone_norm, frozen=c.backbone_frozen,
+                deep_stem=c.deep_stem, avg_down=c.avg_down, dtype=dt,
+            )
+        elif backbone.embed_dim != 1024 or backbone.patch_size != c.stride:
+            raise ValueError("a ViT backbone gives FGN's heads 1024 channels at "
+                             f"the model's stride {c.stride}: {backbone}")
+        else:
+            self.backbone = ViT(backbone, frozen=c.backbone_frozen, dtype=dt)
         # AG-RPN: one shared conv head over all gated maps.
         self.rpn_conv = Conv2d(1024, C, 3, dtype=dt)
         self.rpn_cls = Conv2d(C, A, 1, dtype=dt)

@@ -1,4 +1,5 @@
-"""ResNet-50-C4 backbone and the FGN shared res5 head, in PyTorch.
+"""ResNet-50-C4 backbone and the FGN shared res5 head, in PyTorch, and the
+layers the FGN heads and the ViT backbone share (``Conv2d``, ``Linear``).
 
 Port of the JAX package's ``models/resnet.py``. Module names are the flax
 ones (``conv1``, ``bn1``, ``layer{1..3}.block{i}.{conv,bn}{1..3}``,
@@ -54,6 +55,20 @@ class Conv2d(nn.Module):
         b = None if self.bias is None else self.bias.to(self.dt)
         return F.conv2d(x.to(self.dt), self.weight.to(self.dt), b,
                         stride=self.stride, padding=pad)
+
+
+class Linear(nn.Module):
+    """flax ``nn.Dense``: weight (out, in) held in f32, cast at use."""
+
+    def __init__(self, cin, cout, dtype=torch.float32):
+        super().__init__()
+        self.dt = dtype
+        self.weight = nn.Parameter(torch.empty(cout, cin))
+        self.bias = nn.Parameter(torch.zeros(cout))
+
+    def forward(self, x):
+        return F.linear(x.to(self.dt), self.weight.to(self.dt),
+                        self.bias.to(self.dt))
 
 
 class GroupNorm(nn.Module):
