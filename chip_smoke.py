@@ -17,8 +17,13 @@ forward (``benchmark/configs/omniiseg-n3k3-480.json``: both routes, every
 epilogue) and at f32 twins, timed beside its byte bound, the plain version
 and the library's ``F.group_norm``, and its launches counted a forward
 (b8, b1, COCO2VOC b4: one a GroupNorm call) and a train step (none: every
-call is recorded by autograd). Then it drives the three paths through
-the kernels with launch counters:
+call is recorded by autograd). The ViT's attention (K4) is held against
+its plain version in f32 at the ViT cell's shapes (the queries' global
+blocks and windows, the supports' global blocks and windows) and at two
+more grids, timed, its largest call beside its FLOP bound, the plain
+version and the library's SDPA over the bias in memory, and counted a ViT
+cell request (one launch an ``attend``, no bias in memory, no SDPA call).
+Then it drives the three paths through the kernels with launch counters:
 
   * episodic inference, ``FGN.test_forward`` (R50-C4, N3K3, 480 px, batch
     8, bf16, seeded random weights), compared as a whole against its
@@ -896,6 +901,189 @@ def phase_group_norm(dev, gpu, profile=False):
         launches=launches, route="cuda", bound_by="bytes",
         launches_bench={"omniiseg_b8": launches, "omniiseg_b1": b1,
                         "coco2voc_b4": c2v, "train_step": train})
+
+
+# K4: the ViT's attention with decomposed relative positions
+# (csrc/vit_attention.cu) ---------------------------------------------------
+
+# (name, B, h, w, rows of the table before rel_table resizes it) at the ViT
+# cell's b4 request (coco2voc-vitdet-l-serve-b4): the queries' global blocks
+# (64x64 grid, 127-row tables), their 14x14 windows (25 an image), the
+# supports' global blocks (8x8, tables resized from 127 rows to 15) and
+# windows (one 14x14 window a support, 36 supports); then a 768x1024 image's
+# unpadded 48x64 grid (aligned key tiles, a non-square grid) and a 10x24 grid
+# whose T = 240 overhangs its last key tile.
+K4_SHAPES = [
+    ("global-q", 4, 64, 64, 127),
+    ("window-q", 100, 14, 14, 27),
+    ("global-s", 36, 8, 8, 127),
+    ("window-s", 36, 14, 14, 27),
+    ("nonsquare", 2, 48, 64, 127),
+    ("ragged", 3, 10, 24, 47),
+]
+K4_HEADS = 16
+# Held to the plain version computed in f32 on the same bf16 inputs (q, k,
+# v of unit variance): the kernel rounds its softmax weights to bf16 before
+# they meet v and its output to bf16 (2^-9 of |out| <= ~4), so 0.02 is
+# several times its rounding; the plain version in bf16 (its bias rounded
+# to bf16) is printed beside it.
+K4_TOL = 0.02
+PEAK_BF16_FLOPS_S = 989.4e12
+VIT_CELL = "coco2voc-vitdet-l-n3k3-1024"
+
+
+def k4_inputs(gen, B, h, w, rows, dev, heads=K4_HEADS):
+    """q, k, v as the qkv projection's permuted view of (B, T, 3, heads,
+    64) bf16 of unit variance, and the gathered tables (rows of variance
+    1/64, resized by ``rel_table`` where ``rows`` differs from 2·size − 1)."""
+    import torch
+
+    from fgn_torch.models.vit import rel_table
+
+    T = h * w
+    qkv = torch.randn((B, T, 3, heads, 64), generator=gen).to(
+        dev, torch.bfloat16)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    th, tw = (torch.randn((rows, 64), generator=gen) / 8 for _ in range(2))
+    rh = rel_table(th.to(dev), h).to(torch.bfloat16)
+    rw = rel_table(tw.to(dev), w).to(torch.bfloat16)
+    return q, k, v, rh, rw
+
+
+def k4_flops(B, heads, h, w, d=64):
+    """The least work of one call (benchmark/harness/attention.py's count):
+    4·d a score, 2·d·(h + w) a query row's bias terms."""
+    T = h * w
+    return 4 * d * B * heads * T * T + 2 * d * B * heads * T * (h + w)
+
+
+def k4_library(q, k, v, rh, rw):
+    """What the port ran before K4, timed only: the bias built in memory and
+    PyTorch's SDPA over it."""
+    import torch.nn.functional as F
+
+    from fgn_torch.ops.vit_attention_cuda import rel_bias
+
+    return F.scaled_dot_product_attention(q, k, v,
+                                          attn_mask=rel_bias(q, rh, rw))
+
+
+def k4_request_counts(dev):
+    """One b4 request of the ViT cell's model (random weights) through
+    ``test_forward``: K4 launches once an ``attend`` (24 blocks over the
+    queries and 24 over the supports), no bias is built in memory and SDPA
+    is never called. → the request's counters."""
+    from pathlib import Path
+
+    import torch
+    import torch.nn.functional as F
+
+    from fgn_torch.config.vit import ViTDetConfig
+    from fgn_torch.data.batching import to_device, toy_batch
+    from fgn_torch.models.fgn import FGN
+    from fgn_torch.utils.profiling import counts
+
+    with open(Path(__file__).resolve().parent / "benchmark" / "configs"
+              / f"{VIT_CELL}.json") as f:
+        bb = json.load(f)["backbone"]
+    vcfg = ViTDetConfig(**{k: tuple(v) if isinstance(v, list) else v
+                           for k, v in bb.items()})
+    cfg = bench_cfg(VIT_CELL)
+    model = FGN(cfg, backbone=vcfg).to(dev).eval()
+    # random weights drawn on the card (init_params draws 300 M on the CPU,
+    # seconds of the phase): the counts do not depend on them
+    gen = torch.Generator(device=dev).manual_seed(20)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+            elif p.dim() == 1:
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, p[0].numel() ** -0.5, generator=gen)
+    batch = to_device(toy_batch(B=4, H=1024, W=1024, N=cfg.n_ways,
+                                K=cfg.k_shots, S=128), dev)
+    model.test_forward(batch)
+    torch.cuda.synchronize()
+    zero_counts()
+
+    def refuse(*a, **k):
+        raise RuntimeError("F.scaled_dot_product_attention called")
+
+    with mock.patch.object(F, "scaled_dot_product_attention", refuse):
+        model.test_forward(batch)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in counts().items()
+           if k.startswith(("k4.", "vit."))}
+    want = 2 * vcfg.depth
+    check(got.get("k4.launches") == want and not got.get("vit.bias_bytes"),
+          f"K4 a ViT request: {got}, want k4.launches {want} and no "
+          f"vit.bias_bytes")
+    print(f"K4 a ViT cell request (b4 1024 px, 36 supports of 128 px): "
+          f"{got}", flush=True)
+    del model, batch
+    torch.cuda.empty_cache()
+    return got
+
+
+def phase_vit_attention(dev, gpu):
+    """K4 at the ViT cell's shapes and two more, held to the plain version
+    in f32 (``K4_TOL``), two launches bit for bit alike, each timed; the
+    largest call (the queries' global block at b4) also through the plain
+    version and the library's SDPA over the bias in memory; the launches of
+    one ViT cell request. → the kernels line's record."""
+    import torch
+
+    from fgn_torch.ops import vit_attention_cuda as k4
+
+    gen = torch.Generator().manual_seed(20)
+    rec = None
+    for name, B, h, w, rows in K4_SHAPES:
+        q, k, v, rh, rw = k4_inputs(gen, B, h, w, rows, dev)
+        with torch.no_grad():
+            got, n = moved_by(k4.vit_attention, ("k4.launches",),
+                              q, k, v, rh, rw)
+            check(n == (1,), f"K4 {name}: k4.launches moved {n}")
+            again = k4.vit_attention(q, k, v, rh, rw)
+            with strict_f32():
+                want = k4.vit_attention_plain(*(t.float() for t in
+                                                (q, k, v, rh, rw)))
+            plain = k4.vit_attention_plain(q, k, v, rh, rw)
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs().max().item()
+        plain_err = (plain.float() - want).abs().max().item()
+        check(torch.equal(got, again), f"K4 {name}: two launches differ")
+        check(err <= K4_TOL, f"K4 {name}: max |kernel - f32| {err:.3g} over "
+                             f"{K4_TOL}")
+        ms = cuda_ms(lambda: k4.vit_attention(q, k, v, rh, rw), iters=20)
+        flops = k4_flops(B, K4_HEADS, h, w)
+        print(f"K4 {name} B{B} {h}x{w} (T {h * w}, plan "
+              f"{tuple(k4.plan(h, w))}): max |kernel - f32| {err:.4g}, "
+              f"|plain bf16 - f32| {plain_err:.4g}; {ms:.4f} ms, "
+              f"{flops / ms / 1e9:.1f} TFLOP/s, "
+              f"{100 * flops / PEAK_BF16_FLOPS_S / (ms / 1e3):.1f} % of the "
+              f"bf16 peak", flush=True)
+        if rec is None:  # the largest call
+            with torch.no_grad():
+                plain_ms = cuda_ms(
+                    lambda: k4.vit_attention_plain(q, k, v, rh, rw), iters=3)
+                lib_ms = cuda_ms(lambda: k4_library(q, k, v, rh, rw),
+                                 iters=5)
+            rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       library_ms=lib_ms,
+                       bound_ms=1e3 * flops / PEAK_BF16_FLOPS_S)
+            print(f"K4 {name}: kernel {ms:.4f} ms, bound {rec['bound_ms']:.4f}"
+                  f" ms (FLOPs), plain {plain_ms:.3f} ms, library (bias in "
+                  f"memory + SDPA) {lib_ms:.3f} ms; on {gpu}", flush=True)
+        del q, k, v, rh, rw, got, again, want, plain
+        torch.cuda.empty_cache()
+    launches = k4_request_counts(dev)
+    return dict(
+        rec, name="vit_attention", source="fgn_torch/csrc/vit_attention.cu",
+        replaces="none (the JAX package has no ViT)",
+        path="ViT cell, the queries' global block at b4 (4, 16, 4096, 64)",
+        launches=launches.get("k4.launches", 0), route="cuda",
+        bound_by="FLOPs")
 
 
 def flagship_cfg(**kw):
@@ -3742,16 +3930,18 @@ def phase_bench(dev, gpu, res):
 # Runs a kernel's time is the median of (``cuda_ms``) in the records that
 # are printed only (main path, COCO2VOC serving and N1K1, flagship b4,
 # train path, engine-train K1 and K2, ft-train, ft-eval, coco2voc-train K1
-# and K1-bwd, coco2voc-eval, coco2voc-ft-train): 5, not 20, the cut that
-# pays for the bench; every call is still held against its plain version.
+# and K1-bwd, coco2voc-eval, coco2voc-ft-train): 4, not 20, the cuts that
+# pay for the bench and the K4 phase; every call is still held against its
+# plain version.
 # The records the kernels line reads (eval's, the engine's K1-bwd, COCO2VOC
 # stage 1's unstaged K2) keep 20.
-PRINTED_ITERS = 5
+PRINTED_ITERS = 4
 
 # The phases in the order they run; ``--phases`` picks some (the eval,
 # runner and dp phases take the engine's split and model config, so each
 # brings the engine phase with it).
-PHASES = ("roi_align", "roi_align_backward", "nms", "group_norm", "main_path",
+PHASES = ("roi_align", "roi_align_backward", "nms", "group_norm",
+          "vit_attention", "main_path",
           "plain_twin",
           "coco2voc_serve", "train", "bench", "train_twin", "engine", "eval",
           "runner", "cocovoc", "dp")
@@ -3860,6 +4050,9 @@ def main(argv=None):
     if "group_norm" in want:
         recs["group_norm"] = phase_group_norm(dev, gpu, args.profile)
         phase_done("group_norm")
+    if "vit_attention" in want:
+        recs["vit_attention"] = phase_vit_attention(dev, gpu)
+        phase_done("vit_attention")
     if "main_path" in want:
         model, batch, calls, bench_res["flagship"] = phase_main_path(
             dev, gpu)
@@ -3973,7 +4166,7 @@ def main(argv=None):
                               path="eval pass 1, " + CONFIG)
         del eval_calls
     for name, rec in recs.items():
-        if name == "group_norm":  # its phase counts its launches
+        if name in ("group_norm", "vit_attention"):  # counted by their phases
             continue
         if "bench" in want:  # a forward's (a train step's) launches
             rec["launches_bench"] = {w: r["launches"][name]
@@ -3998,7 +4191,7 @@ def main(argv=None):
 
     kernels = [{k: recs[name][k] for k in KERNEL_KEYS if k in recs[name]}
                for name in ("roi_align", "roi_align_backward", "nms_keep",
-                            "group_norm")
+                            "group_norm", "vit_attention")
                if name in recs]
     print(gpu_line())
     print(json.dumps({"kernels": kernels}))

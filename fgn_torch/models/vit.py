@@ -30,14 +30,16 @@ through the depth. The map goes to the heads in ``dtype``. LayerNorm
 takes its statistics in float32 (PyTorch's kernels accumulate a bf16
 input in float32), and so does the attention's softmax.
 
-Attention goes through ``F.scaled_dot_product_attention`` with the
-relative-position bias built in memory as an additive mask
-(``Attention.rel_bias``). ``Attention.attend`` covers the work from q, k
-and v to the heads' output before ``proj``, inside the span
-``attn_window`` or ``attn_global``; the counters ``vit.attn_scores``
+Attention runs K4 (``ops/vit_attention_cuda.py``, ``csrc/vit_attention.cu``)
+on the card: one kernel that builds the relative-position terms inside its
+tiles and reads q, k and v through the qkv projection's permuted view. On
+the CPU it runs the plain version: the bias built in memory
+(``Attention.rel_bias``) and an f32 softmax. ``Attention.attend`` covers
+the work from q, k and v to the heads' output before ``proj``, inside the
+span ``attn_window`` or ``attn_global``; the counters ``vit.attn_scores``
 (Σ B·heads·Tq·Tk), ``vit.attn_tokens`` (Σ B·heads·T), ``vit.bias_bytes``
-(the materialised bias) and ``vit.pad_tokens`` (tokens the window padding
-adds) count it.
+(bias materialised in memory: the plain route's only), ``k4.launches`` and
+``vit.pad_tokens`` (tokens the window padding adds) count it.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ from torch import nn
 
 from fgn_torch.config.vit import ViTDetConfig
 from fgn_torch.models.resnet import Linear, _nchw, _nhwc
+from fgn_torch.ops.vit_attention_cuda import rel_bias, vit_attention
 from fgn_torch.utils.profiling import count, span
 
 
@@ -152,25 +155,18 @@ class Attention(nn.Module):
         return self.proj(out.transpose(1, 2).reshape(Bw, h, w, C))
 
     def rel_bias(self, q, rh, rw):
-        """The additive bias (Bw, heads, T, T): q·Rh[row(q), row(k)] +
-        q·Rw[col(q), col(k)], q unscaled (detectron2's
+        """The additive bias (Bw, heads, T, T) of the plain route: q·Rh[row(q),
+        row(k)] + q·Rw[col(q), col(k)], q unscaled (detectron2's
         ``add_decomposed_rel_pos``); ``rh`` (h, h, d), ``rw`` (w, w, d)."""
-        Bw, nh, T, d = q.shape
-        h, w = rh.shape[0], rw.shape[0]
-        r_q = q.reshape(Bw, nh, h, w, d)
-        rel_h = torch.einsum("bnhwc,hkc->bnhwk", r_q, rh)
-        rel_w = torch.einsum("bnhwc,wkc->bnhwk", r_q, rw)
-        return (rel_h[..., :, None] + rel_w[..., None, :]).reshape(Bw, nh, T, T)
+        return rel_bias(q, rh, rw)
 
     def attend(self, q, k, v, rh, rw):
         """softmax(q·kᵀ/√d + bias)·v → (Bw, heads, T, d)."""
         with span("attn_window" if self.window else "attn_global"):
-            bias = self.rel_bias(q, rh, rw)
-            out = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+            out = vit_attention(q, k, v, rh, rw, self.rel_bias)
         Bw, nh, T, _ = q.shape
         count("vit.attn_scores", Bw * nh * T * T)
         count("vit.attn_tokens", Bw * nh * T)
-        count("vit.bias_bytes", bias.numel() * bias.element_size())
         return out
 
 

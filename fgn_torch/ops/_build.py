@@ -30,6 +30,7 @@ NVCC_FLAGS = (
 
 # C signatures of the exported functions, per source.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "roi_align": {
         "fgn_roi_align_forward": (
@@ -56,6 +57,12 @@ _SIGNATURES = {
             [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
              _P], _I),
         "fgn_group_norm_error_string": ([_I], ctypes.c_char_p),
+    },
+    "vit_attention": {
+        "fgn_vit_attention": (
+            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
+             _L, _L, _L, _I, _F, _P], _I),
+        "fgn_vit_attention_error_string": ([_I], ctypes.c_char_p),
     },
 }
 
