@@ -10,10 +10,10 @@ and backward (K1-bwd, its staged kernel and, for maps whose accumulator
 does not fit, its atomics kernel), and the greedy-NMS keep mask (K2), on
 edge cases and at the shapes of the main paths; K1's staged kernel is
 timed beside the direct one, K1-bwd's beside the atomics one, and K2's
-walk beside its earlier bitmask kernel (whose two launches are also timed
-apart), at every main-path call. GroupNorm with its epilogue (K3) is held
-against its plain version at every GroupNorm call of the OMNIISEG b8
-forward (``benchmark/configs/omniiseg-n3k3-480.json``: both routes, every
+walk beside its plain version and its bound, at every main-path call.
+GroupNorm with its epilogue (K3) is held against its plain version at
+every GroupNorm call of the OMNIISEG b8 forward
+(``benchmark/configs/omniiseg-n3k3-480.json``: both routes, every
 epilogue) and at f32 twins, timed beside its byte bound, the plain version
 and the library's ``F.group_norm``, and its launches counted a forward
 (b8, b1, COCO2VOC b4: one a GroupNorm call) and a train step (none: every
@@ -26,25 +26,17 @@ cell request (one launch an ``attend``, no bias in memory, no SDPA call).
 Then it drives the three paths through the kernels with launch counters:
 
   * episodic inference, ``FGN.test_forward`` (R50-C4, N3K3, 480 px, batch
-    8, bf16, seeded random weights), compared as a whole against its
-    plain-version twin in f32, and the COCO2VOC geometry (800x1088, b4);
-    each timed through ``fgn_torch.bench``'s serving workload (3 rounds of
-    5 chained forwards between CUDA events; the flagship's rounds also read
-    on the host every forward), every forward counted, and the FLOPs of one
-    forward (``flops.count_flops``, the kernels' calls left out), the
-    flagship's the same through the kernels as through their plain versions
-    within ``ROUTE_FLOPS_RTOL``;
-  * training, ``make_train_step`` (``FGN.train_forward``, backward, Adam)
-    through ``fgn_torch.bench``'s train workload: 2 warm-up steps and 3
-    rounds of 5 full-width steps at b12 bf16, every step counted, one
-    step's FLOPs the same through the kernels as through their plain
-    versions within ``ROUTE_FLOPS_RTOL``, and an f32 training twin at b2
-    through the kernels and through the plain versions;
-  * the bench (``phase_bench``): the flagship at b4 and COCO2VOC N1K1 (b4;
-    K1 on 4 support maps, K2 at Mp 6144 with one way; the kernel calls of
-    both held against the plain versions), then ``fgn_torch.bench.report`` over these
-    and the three workloads above, printed as the bench's JSON line, every
-    ``mfu`` in (0, 1];
+    8 and batch 4, bf16, seeded random weights), compared as a whole
+    against its plain-version twin in f32, and the COCO2VOC geometry
+    (800x1088, 256 px supports, ``rpn_test_nms_pre=6144``, b4) at N3K3 and
+    N1K1 (K1 on 4 support maps of R = 1, K2 at Mp 6144 with one way): at
+    each, a forward with its launches counted and its outputs checked, and
+    each kernel held against its plain version at one more forward's calls;
+  * training, ``make_train_step`` (``FGN.train_forward``, backward, Adam):
+    5 full-width steps at b12 bf16, every step's launches counted, the step
+    split at the program's spans, each kernel held at one more step's
+    calls, and an f32 training twin at b2 through the kernels and through
+    the plain versions;
   * the system as a user runs it, from ``configs/fgn_train_mnistiseg_n3k3.py``
     (R50-C4, GN, deep stem, avg-down, N3K3, bf16): the episode engine held
     stage by stage to the committed reference (``data/digests.py``: OpenCV
@@ -94,8 +86,9 @@ Then it drives the three paths through the kernels with launch counters:
     checkpoint scored by 2 ranks gives the metrics and pickles of 1 rank.
 
 ``--phases a,b`` runs only the phases named (``PHASES``; eval, runner and
-dp bring the engine phase along, bench the main path, COCO2VOC serving and
-train phases); the default, and the full check, is all.
+dp bring the engine phase along); the default, and the full check, is all.
+
+It times no end-to-end rate: the benchmark (``benchmark/run.py``) does.
 
 With ``--profile`` it also prints where the device time of one flagship
 forward and of one train step goes (torch.profiler), K3's routes at other
@@ -104,12 +97,14 @@ at other channel tiles and ROI groups than its rules pick, K1-bwd's staged
 kernel at other channel tiles and block sizes, and K2's walk at every
 cluster size.
 
-Prints its measurements on earlier lines, each phase's wall time on a
-``phase <name>: <s> s`` line and the bench's JSON line; the line before the
-last is one JSON object of the kernels, each with every number from one
-path (its ``path``: K1 and K2 from evaluation, K1-bwd from the engine's
-training, K3 from its phase: its largest call, and a b8 forward's sums; ``launches_bench``: a forward's (a train step's) launches in each
-bench workload;
+Prints its measurements on earlier lines and each phase's wall time on a
+``phase <name>: <s> s`` line; the line before the last is one JSON object
+of the kernels, each with every number from one path (its ``path``: K1
+and K2 from evaluation, K1-bwd from the engine's training, K3 from its
+phase: its largest call, and a b8 forward's sums;
+``launches_main_paths``: a forward's launches at each serving geometry of
+the main path and COCO2VOC serving phases and a train step's in the train
+phase, K3's a forward's at b8, b1 and COCO2VOC b4 and a train step's;
 ``launches_dp``: each rank's launches in ``phase_dp``'s flagship run;
 ``launches_coco2voc``: each run's launches in ``phase_cocovoc``, K2's
 unstaged walk also apart, and K2's ``coco2voc_unstaged`` record);
@@ -137,11 +132,26 @@ from unittest import mock
 # outside the tensor cores, at the full 700 W power limit.
 HBM_BYTES_S = 3.35e12
 F32_FLOPS_S = 67e12
+# A kernel's least operations: a multiply-add for each of RoIAlign's 16
+# corner weights an output element (K1) or gradient element (K1-bwd); 12 f32
+# operations an IoU (min, max, sub x2, mul, add, sub, max, div, compare) for
+# each IoU a greedy walk needs (K2, ``k2_ops``).
+ROI_ALIGN_FLOPS = 2 * 16
+IOU_FLOPS = 12
 
 
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def gpu_line():
+    """``nvidia-smi``'s name and power limit of the first card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
 
 
 @contextlib.contextmanager
@@ -431,34 +441,6 @@ def rpn_like_boxes(gen, B, M, extent):
     return torch.cat([ctr - wh / 2, ctr + wh / 2], dim=-1)
 
 
-def k2_bitmask(boxes, alive, thr, parts=3, bufs=None):
-    """K2's earlier design, the bitmask kernel (an all-pairs bitmask in
-    device memory, then one serial walk per image), on greedy_alive_cuda's
-    arguments, through its C entry point: to compare and time it beside the
-    walk, so no launch counter moves. parts: 1 the bitmask pass alone, 2 the
-    serial walk alone (on the bitmask already in ``bufs``), 3 both. bufs:
-    (areas, scratch, keep), made as its wrapper made them when not given."""
-    import torch
-
-    from fgn_torch.ops import _build
-    from fgn_torch.ops.boxes import box_area
-
-    B, Mp = alive.shape
-    if bufs is None:
-        bufs = (box_area(boxes).contiguous(),
-                torch.empty((B, Mp, -(-Mp // 64)), dtype=torch.int64,
-                            device=boxes.device),
-                torch.empty((B, Mp), dtype=torch.bool, device=boxes.device))
-    areas, scratch, keep = bufs
-    lib = _build.load("nms")
-    rc = lib.fgn_nms_keep_bitmask(
-        boxes.data_ptr(), areas.data_ptr(), alive.data_ptr(),
-        scratch.data_ptr(), keep.data_ptr(), B, Mp, float(thr), parts,
-        torch.cuda.current_stream(boxes.device).cuda_stream)
-    _build.check(lib, "fgn_nms_error_string", rc, "nms bitmask kernel")
-    return keep
-
-
 def k2_landed(*a, **k):
     """greedy_alive_cuda(*a, **k) → (its result, the K2 design whose counter
     it moved: "staged" or "unstaged")."""
@@ -511,8 +493,7 @@ def k2_case(gen, kind, B, Mp):
 
 def phase_nms(dev, B=8, M=4096):
     """K2 against its plain version: exact keep masks and NMS outputs; each
-    launch must land on the counter of the design ``_staged`` names. The
-    bitmask kernel is held to the same masks."""
+    launch must land on the counter of the design ``_staged`` names."""
     import torch
 
     from fgn_torch.ops.nms import _greedy_alive, batched_nms, nms_padded
@@ -583,9 +564,6 @@ def phase_nms(dev, B=8, M=4096):
         ref = _greedy_alive(boxes, alive, thr)
         check(torch.equal(keep, ref), f"K2 keep mask differs: {kind} B={b} "
                                       f"Mp={mp} IoU {thr}")
-        if mp <= 6144:
-            check(torch.equal(k2_bitmask(boxes, alive, thr), ref),
-                  f"K2 bitmask kernel differs: {kind} Mp={mp}")
         if kind == "chains":  # the middle box of each chain, and only it
             check(int((alive & ~keep).sum()) == b * len(K2_CHAINS) * mp // 256,
                   f"K2 chains Mp={mp}: {int((alive & ~keep).sum())} dropped")
@@ -852,8 +830,6 @@ def phase_group_norm(dev, gpu, profile=False):
     ``profile``, ``k3_sweep``. → the kernels line's record."""
     import torch
 
-    from fgn_torch import bench
-
     gen = torch.Generator().manual_seed(18)
     omni = bench_cfg("omniiseg-n3k3-480")
     launches, calls = k3_forward_counts("omniiseg", omni, 8, 480, 480, 128,
@@ -879,7 +855,7 @@ def phase_group_norm(dev, gpu, profile=False):
     b1, _ = k3_forward_counts("omniiseg", omni, 1, 480, 480, 128, dev)
     c2v, _ = k3_forward_counts(
         "coco2voc", bench_cfg("coco2voc-n3k3-800"), 4, 800, 1088, 128, dev)
-    model, _, step, batch, tgen = bench.make_train(2, dev)
+    model, _, step, batch, tgen = make_train(2, dev)
     step(batch, tgen)
     torch.cuda.synchronize()
     zero_counts()
@@ -899,8 +875,8 @@ def phase_group_norm(dev, gpu, profile=False):
         path="OMNIISEG b8 forward, " + ", ".join(
             f"{k} {v:.4f}" for k, v in tot.items()) + " ms a forward",
         launches=launches, route="cuda", bound_by="bytes",
-        launches_bench={"omniiseg_b8": launches, "omniiseg_b1": b1,
-                        "coco2voc_b4": c2v, "train_step": train})
+        launches_main_paths={"omniiseg_b8": launches, "omniiseg_b1": b1,
+                             "coco2voc_b4": c2v, "train_step": train})
 
 
 # K4: the ViT's attention with decomposed relative positions
@@ -1093,6 +1069,28 @@ def flagship_cfg(**kw):
     return FGNConfig(**{**FLAGSHIP_CFG, **kw})
 
 
+def make_train(nb, dev):
+    """The flagship's trainer: ``make_train_step`` (train_forward, backward,
+    Adam at ``make_lr_schedule(5e-3, steps_per_epoch=1000)``), seeded random
+    weights, 480 px N3K3 episodes at batch ``nb``, the ROI sample's
+    generator seeded with 2. → (model, optimizer, step, batch, generator)."""
+    import torch
+
+    from fgn_torch.data.batching import to_device, toy_batch
+    from fgn_torch.models.fgn import build_model
+    from fgn_torch.train.optim import build_optimizer, make_lr_schedule
+    from fgn_torch.train.train_step import make_train_step
+
+    model = build_model(flagship_cfg(), dev, seed=0)
+    opt = build_optimizer(model, optimizer="adam",
+                          schedule=make_lr_schedule(5e-3,
+                                                    steps_per_epoch=1000))
+    step = make_train_step(model, opt)
+    batch = to_device(toy_batch(B=nb, H=480, W=480, N=3, K=3, S=128), dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    return model, opt, step, batch, gen
+
+
 def zero_counts():
     from fgn_torch.utils.profiling import reset
 
@@ -1161,7 +1159,7 @@ def check_outputs(out, cfg, B, tag):
     check(bool(out["dt_valid"].any()), f"{tag}: no detections")
 
 
-def capture_kernel_calls(model, batch):
+def capture_kernel_args(model, batch):
     """The arguments of every kernel call of one forward, in order:
     [(kernel name, args, kwargs)]. The kernels run as usual."""
     import fgn_torch.models.fgn as fgn_mod
@@ -1193,32 +1191,20 @@ def counted(fn, counts):
     return wrapped
 
 
-def rounds_line(rates, nb):
-    """A workload's rounds: the median and each round, in imgs/s and in ms
-    a forward (or step) of batch ``nb``."""
-    med = statistics.median(rates)
-    return (f"median {nb / med * 1e3:.3f} ms ({med:.2f} imgs/s; rounds "
-            + ", ".join(f"{r:.2f}" for r in rates) + " imgs/s)")
+# COCO2VOC serving (benchmark/configs/coco2voc-n3k3-800.json): 800x1088
+# canvases, 256 px supports, rpn_test_nms_pre 6144 (K2's longest staged
+# walk), b4; N3K3, and N1K1, the one run of K1 on 4 support maps of R = 1
+# and of K2 at Mp 6144 with one way.
+COCO2VOC_GEOMETRY = dict(B=4, H=800, W=1088, S=256)
+COCO2VOC_NMS_PRE = 6144
+COCO2VOC_WAYS = (("coco2voc", 3, 3), ("coco2voc-n1k1", 1, 1))
 
 
-def flops_line(res):
-    """A workload's FLOPs an image, by op, and the kernels' own."""
-    ops = sorted(res["flops_by_op_per_img"].items(), key=lambda kv: -kv[1])
-    return (f"{res['flops_per_img'] / 1e9:.6f} GFLOP an image "
-            f"(FlopCounterMode, the kernels' calls left out: "
-            + ", ".join(f"{op} {n / 1e9:.6f}" for op, n in ops)
-            + f"; the kernels' own {res['kernel_flops_per_img'] / 1e9:.6f})")
-
-
-def phase_main_path(dev, gpu, B=8, H=480, W=480, S=128, N=3, K=3, iters=5,
-                    rounds=3, blocked=True, tag="flagship", **cfg_kw):
-    """FGN.test_forward through the kernels: launches counted, outputs
-    checked; then ``fgn_torch.bench``'s serving workload on the same model
-    and batch (rounds of ``iters`` chained forwards between CUDA events,
-    with ``blocked`` rounds read on the host every forward too), every
-    forward counted, and the FLOPs of one forward. → (model, batch, the
-    kernels' calls, the workload's results)."""
-    from fgn_torch import bench
+def phase_main_path(dev, gpu, B=8, H=480, W=480, S=128, N=3, K=3,
+                    tag="flagship", **cfg_kw):
+    """FGN.test_forward through the kernels: a warm-up forward, then one
+    with its launches counted and its outputs checked. → (model, batch, the
+    kernels' calls of one more forward, its launches)."""
     from fgn_torch.data.batching import to_device, toy_batch
     from fgn_torch.models.fgn import build_model
 
@@ -1227,66 +1213,13 @@ def phase_main_path(dev, gpu, B=8, H=480, W=480, S=128, N=3, K=3, iters=5,
     batch = to_device(toy_batch(B=B, H=H, W=W, N=N, K=K, S=S), dev)
     model.test_forward(batch)  # warm-up: cuDNN plans, kernel load
     out, counts = counted_forward(model, batch)
-    print(f"main path {tag}: launches {counts}", flush=True)
     check(counts == SERVE_KERNELS,
           f"{tag}: want launches {SERVE_KERNELS} per forward, got {counts}")
     check_outputs(out, cfg, B, tag)
-    per = []
-    res = bench.serve_bench(model, batch, iters, rounds, dev, blocked=blocked,
-                            forward=counted(model.test_forward, per))
-    want = 1 + iters * rounds * (2 if blocked else 1)
-    check(len(per) == want and all(c == SERVE_KERNELS for c in per),
-          f"{tag} bench: want {want} forwards of {SERVE_KERNELS}, got "
-          f"{len(per)}: {[c for c in per if c != SERVE_KERNELS][:2]}")
-    res["launches"] = per[0]
-    n_valid = int(out["dt_valid"].sum())
-    print(f"main path {tag}: test_forward b{B} {H}x{W} N{N}K{K} S{S} bf16, "
-          f"{rounds} rounds of {iters} chained forwards (CUDA events): "
-          f"{rounds_line(res['rounds'], B)}"
-          + (f"; read on the host every forward: "
-             f"{rounds_line(res['blocked_rounds'], B)}" if blocked else "")
-          + f"; {flops_line(res)}; {n_valid} detections; "
-          f"launches per forward {SERVE_KERNELS} in all {len(per)}; on {gpu}",
-          flush=True)
-    return model, batch, capture_kernel_calls(model, batch), res
-
-
-def plain_route_flops(run):
-    """``flops.count_flops`` of ``run()`` with the kernels' wrappers taking
-    their plain versions on the card's tensors (their einsums seen by the
-    counter, and left out by the wrappers as a kernel's calls are)."""
-    import fgn_torch.ops.nms_cuda as nc
-    import fgn_torch.ops.roi_align_cuda as rac
-    from fgn_torch.ops.flops import count_flops
-    from fgn_torch.ops.nms import _greedy_alive
-
-    def plain_bwd(g, rois, H, W, *geom):
-        return rac._roi_align_plain_bwd(g, rois, H, W, g.dtype, *geom)
-
-    with mock.patch.object(rac, "_roi_align_forward", rac._roi_align_plain), \
-            mock.patch.object(rac, "_roi_align_backward", plain_bwd), \
-            mock.patch.object(nc, "_greedy_keep", _greedy_alive):
-        return count_flops(run)
-
-
-# The FLOP count through the kernels against the count through the plain
-# versions: equal but for float rounding. Leaving out the plain RoIAlign's
-# einsums of the smallest call (the supports, R = 1) moves the count by
-# 1.4e-5, all of them by 1.1e-2.
-ROUTE_FLOPS_RTOL = 1e-6
-
-
-def check_route_flops(tag, res, plain, nb):
-    """The count an image through the kernels (``res``) held to the count
-    of ``plain_route_flops`` (``plain``, of a batch ``nb``)."""
-    kern, pl = res["flops_per_img"], plain["flops"] / nb
-    check(abs(pl / kern - 1) <= ROUTE_FLOPS_RTOL,
-          f"{tag}: FLOPs an image through the kernels {kern} and the plain "
-          f"versions {pl} differ by more than {ROUTE_FLOPS_RTOL:g}")
-    print(f"{tag}: FLOPs an image through the kernels {kern:.10g}, through "
-          f"the plain versions {pl:.10g}, within {ROUTE_FLOPS_RTOL:g} (the "
-          f"kernels' own {res['kernel_flops_per_img']:.10g} / "
-          f"{plain['kernel_flops'] / nb:.10g})", flush=True)
+    print(f"main path {tag}: test_forward b{B} {H}x{W} N{N}K{K} S{S} bf16: "
+          f"launches {counts}; {int(out['dt_valid'].sum())} detections; on "
+          f"{gpu}", flush=True)
+    return model, batch, capture_kernel_args(model, batch), counts
 
 
 def k1_record(where, i, a, k, iters=20):
@@ -1297,7 +1230,6 @@ def k1_record(where, i, a, k, iters=20):
     shorter than its host time reads as the host time), and on the card
     alone (``device_ms``), beside the plain version and the bound. → its
     record."""
-    from fgn_torch.ops.flops import ROI_ALIGN_FLOPS
     from fgn_torch.ops.roi_align_cuda import _roi_align_plain, roi_align_cuda
 
     fmap, rois = a[0], a[1]
@@ -1401,13 +1333,22 @@ def k1_sweep(a, k):
           flush=True)
 
 
+def k2_ops(keep, alive):
+    """The operations of the least IoUs a greedy walk of these boxes needs:
+    per image with A alive and K kept, every pair of kept boxes (each must
+    be shown not to suppress the other) and one IoU above the threshold
+    for each suppressed box."""
+    n_keep = keep.sum(1).double()
+    n_alive = alive.sum(1).double()
+    return IOU_FLOPS * int((n_keep * (n_keep - 1) / 2
+                            + n_alive - n_keep).sum())
+
+
 def k2_bound(keep, alive):
     """K2's least time on these inputs, in seconds: (moving its bytes, doing
     its operations). Bytes: each candidate's box read and its alive and
-    keep flags, 18 bytes. Operations: ``flops.k2_ops``, the least IoUs a
-    greedy walk needs."""
-    from fgn_torch.ops.flops import k2_ops
-
+    keep flags, 18 bytes. Operations: ``k2_ops``, the least IoUs a greedy
+    walk needs."""
     B, Mp = alive.shape
     return B * Mp * (16 + 1 + 1) / HBM_BYTES_S, k2_ops(keep, alive) / F32_FLOPS_S
 
@@ -1415,11 +1356,10 @@ def k2_bound(keep, alive):
 def kernel_records(calls, iters=20, where="main-path", names=None):
     """Each kernel (of ``names``, all when None) on the inputs the main path
     gave it: held against its plain version, timed beside its plain version,
-    its earlier design and its bound. Returns {kernel: record of its largest
-    call}."""
+    its earlier design (K1's) and its bound. Returns {kernel: record of its
+    largest call}."""
     import torch
 
-    from fgn_torch.ops.boxes import box_area
     from fgn_torch.ops.nms import _greedy_alive
     from fgn_torch.ops.nms_cuda import (
         _cluster_size, _max_clusters, greedy_alive_cuda,
@@ -1438,26 +1378,11 @@ def kernel_records(calls, iters=20, where="main-path", names=None):
                                       f"walk")
             ref = _greedy_alive(*a, **k)
             check(torch.equal(got, ref), f"K2 {where} call {i} differs")
-            check(torch.equal(k2_bitmask(boxes, alive, thr), ref),
-                  f"K2 bitmask kernel, {where} call {i} differs")
             err = 0.0
             reps = 10
-
-            def run(fn):
-                return lambda: [fn(boxes, alive, thr) for _ in range(reps)]
-
-            # the walk and the bitmask kernel in turns: new, old, old, new
-            times = [cuda_ms(run(fn), iters) / reps for fn in (
-                greedy_alive_cuda, k2_bitmask, k2_bitmask, greedy_alive_cuda)]
-            ms, earlier_ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
-            bufs = (box_area(boxes).contiguous(),
-                    torch.empty((*alive.shape, -(-alive.shape[1] // 64)),
-                                dtype=torch.int64, device=boxes.device),
-                    torch.empty_like(alive))
-            dev_ms, dev_old, dev_mask, dev_walk = (
-                device_ms(lambda: greedy_alive_cuda(boxes, alive, thr)),
-                *(device_ms(lambda p=p: k2_bitmask(boxes, alive, thr, p, bufs))
-                  for p in (3, 1, 2)))
+            ms = cuda_ms(lambda: [greedy_alive_cuda(boxes, alive, thr)
+                                  for _ in range(reps)], iters) / reps
+            dev_ms = device_ms(lambda: greedy_alive_cuda(boxes, alive, thr))
             plain_ms = cuda_ms(lambda: _greedy_alive(*a, **k), 3, warmup=1)
             B, Mp = alive.shape
             t_bytes, t_ops = k2_bound(got, alive)
@@ -1470,17 +1395,14 @@ def kernel_records(calls, iters=20, where="main-path", names=None):
                     f"card holds {fits} clusters of 16/8/4/2)")
             bound_ms = max(t_bytes, t_ops) * 1e3
             print(f"{name} {where} call {i}: {desc}: err {err:.3g}; walk "
-                  f"{ms:.4f} ms ({times[0]:.4f}, {times[3]:.4f}; on the card "
-                  f"{dev_ms:.4f}), bitmask kernel {earlier_ms:.4f} ms "
-                  f"({times[1]:.4f}, {times[2]:.4f}; on the card {dev_old:.4f}: "
-                  f"bitmask pass {dev_mask:.4f}, serial walk {dev_walk:.4f}), "
-                  f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+                  f"{ms:.4f} ms (on the card {dev_ms:.4f}), plain "
+                  f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
                   f"({'bytes' if t_bytes >= t_ops else 'operations'})",
                   flush=True)
             rec = dict(
                 name=name, route="cuda", source="fgn_torch/csrc/nms.cu",
                 replaces="nms_pallas.py:157", max_abs_err=err, ms=ms,
-                earlier_ms=earlier_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                earlier_ms=None, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 library_ms=None, _size=size,
             )
@@ -1600,37 +1522,28 @@ def phase_plain_twin(dev):
           flush=True)
 
 
-def phase_train(dev, gpu, B=12, iters=20, profile=False):
-    """The full-width trainer through ``fgn_torch.bench``'s train workload:
-    make_train_step (train_forward, backward, Adam at
-    make_lr_schedule(5e-3, steps_per_epoch=1000)) on the flagship at b12
-    bf16, 2 warm-up steps, 3 rounds of ``max(iters // 4, 5)`` steps between
-    CUDA events and one more step whose FLOPs are counted; every step runs
-    with the launch counters set to 0 just before it and read just after.
-    → (counts of one step, the K1 forward, K1-bwd and K2 calls of one more
-    step, the workload's results). With ``profile``, one more step is
-    profiled: its forward by stage, and the whole step by op."""
+def phase_train(dev, gpu, B=12, steps=5, profile=False):
+    """The full-width trainer (``make_train``) on the flagship at b12 bf16:
+    ``steps`` steps, each with the launch counters set to 0 just before it
+    and read just after, their losses finite and both parameter groups
+    moved; the step's split at the program's spans. → (the launches of one
+    step, the K1 forward, K1-bwd and K2 calls of one more step). With
+    ``profile``, one more step is profiled: its forward by stage, and the
+    whole step by op."""
     import torch
 
-    from fgn_torch import bench
-
-    model, opt, step, batch, gen = bench.make_train(B, dev)
+    model, opt, step, batch, gen = make_train(B, dev)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counts, metrics = [], []
-
-    def kept(b, g):
-        metrics.append(step(b, g))
-        return metrics[-1]
-
-    res = bench.train_bench(model, counted(kept, counts), batch, gen, iters,
-                            dev)
-    res["launches"] = counts[0]
+    counted_step = counted(step, counts)
+    for _ in range(steps):
+        metrics.append(counted_step(batch, gen))
+    torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    n = 2 + 3 * max(iters // 4, 5) + 1
-    check(len(counts) == n and all(c == TRAIN_KERNELS for c in counts),
-          f"train step: want {n} steps of {TRAIN_KERNELS}, got {len(counts)}: "
+    check(all(c == TRAIN_KERNELS for c in counts),
+          f"train step: want {steps} steps of {TRAIN_KERNELS}, got "
           f"{[c for c in counts if c != TRAIN_KERNELS][:2]}")
     bad = [k for m in metrics for k, v in m.items()
            if k.startswith("loss_") and not bool(torch.isfinite(v))]
@@ -1643,13 +1556,10 @@ def phase_train(dev, gpu, B=12, iters=20, profile=False):
           f"train step: parameters moved per group {moved}")
     losses = {k: round(float(v), 4) for k, v in metrics[-1].items()
               if k.startswith("loss_")}
-    print(f"train step: launches per step {counts[0]} in all {n}; losses "
-          f"{losses}", flush=True)
-    print(f"train step b{B} 480x480 N3K3 S128 bf16 adam, 3 rounds of "
-          f"{max(iters // 4, 5)} steps (CUDA events): "
-          f"{rounds_line(res['rounds'], B)}; {flops_line(res)} (forward, "
-          f"backward, optimizer); peak memory {peak / 2**30:.2f} GiB "
-          f"(torch.cuda.max_memory_allocated), on {gpu}", flush=True)
+    print(f"train step b{B} 480x480 N3K3 S128 bf16 adam: launches per step "
+          f"{counts[0]} in all {steps}; losses {losses}; peak memory "
+          f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated), on "
+          f"{gpu}", flush=True)
 
     split = step_split(step, batch, gen)
     print("train step split (the program's spans' CUDA events, median of 3; "
@@ -1657,14 +1567,11 @@ def phase_train(dev, gpu, B=12, iters=20, profile=False):
               f"{k} {v:.3f} ms" for k, v in split.items()), flush=True)
 
     fwd_calls, calls, nms_calls = capture_train_calls(step, batch, gen)
-    check_route_flops("train step", res,
-                      plain_route_flops(lambda: step(batch, gen)),
-                      batch.qry_img.shape[0])
     if profile:
         phase_breakdown(
             "train step", lambda: step(batch, gen), "step")
     del model, opt, before, batch
-    return counts[0], fwd_calls, calls, nms_calls, res
+    return counts[0], fwd_calls, calls, nms_calls
 
 
 def capture_train_calls(step, batch, gen):
@@ -1757,7 +1664,6 @@ def backward_record(calls, iters=20, where="train-path"):
     bound. → the record of the largest call."""
     import torch
 
-    from fgn_torch.ops.flops import ROI_ALIGN_FLOPS
     from fgn_torch.ops.roi_align_cuda import (
         _roi_align_plain_bwd, _roi_weights, roi_align_backward_cuda,
     )
@@ -2268,7 +2174,7 @@ def phase_eval(dev, gpu, ds, mcfg, B=8, pad_hw=(480, 480), twin_n=16,
     check(m2 == m1, f"eval: pass 2 metrics {m2} differ from pass 1's {m1}")
     check(ev._episode_cache[-1][1].n_real == n - B * (len(ev._episode_cache) - 1),
           "eval: last batch n_real")
-    calls = capture_kernel_calls(model, to_device(
+    calls = capture_kernel_args(model, to_device(
         from_numpy(**ev._episode_cache[0][0]._asdict()), dev))
 
     # the double-buffered pass against a synchronized loop, bit for bit
@@ -2785,7 +2691,7 @@ def phase_runner(dev, gpu, work, raw, engine_step_ms):
         k1_record("ft-train", i, a, k, iters=PRINTED_ITERS)
     kernel_records(nms_calls, iters=PRINTED_ITERS, where="ft-train")
     backward_record(bwd_calls, iters=PRINTED_ITERS, where="ft-train")
-    eval_calls = capture_kernel_calls(r.model, r.first["eval"])
+    eval_calls = capture_kernel_args(r.model, r.first["eval"])
     check([n for n, _, _ in eval_calls].count("roi_align") == 3
           and [n for n, _, _ in eval_calls].count("nms_keep") == 2,
           f"runner C: ft-eval calls {[n for n, _, _ in eval_calls]}")
@@ -3278,7 +3184,7 @@ def phase_cocovoc(dev, gpu, work):
         k1_record("coco2voc-train", i, a, k, iters=PRINTED_ITERS)
     backward_record(bwd_calls, iters=PRINTED_ITERS, where="coco2voc-train")
     k2_rec = k2_unstaged_record("coco2voc-train", *nms_calls[0][1:])
-    eval_calls = capture_kernel_calls(r.model, r.first["eval"])
+    eval_calls = capture_kernel_args(r.model, r.first["eval"])
     names = [n for n, _, _ in eval_calls]
     check(names.count("roi_align") == 3 and names.count("nms_keep") == 2,
           f"coco2voc-eval calls {names}")
@@ -3892,47 +3798,12 @@ def cv2_line():
     return "; ".join(parts)
 
 
-def phase_bench(dev, gpu, res):
-    """``fgn_torch.bench`` at reduced depth, its flagship b8, COCO2VOC N3K3
-    and train workloads taken from the main path, COCO2VOC and train phases
-    (``res``): adds the flagship at b4 and COCO2VOC N1K1 (800x1088 b4, 256
-    px supports, ``rpn_test_nms_pre=6144``; K1's support call on 4 maps of
-    R = 1, K2 at Mp 6144 with one way), each forward counted, the kernel
-    calls of both held against the plain versions; prints the bench's JSON
-    line, whose settings the workloads' results carry, and checks every
-    ``mfu`` in (0, 1]. → the line."""
-    import torch
-
-    from fgn_torch import bench
-
-    g = bench.COCO2VOC
-    model, batch, calls, res["coco2voc_n1k1"] = phase_main_path(
-        dev, gpu, B=4, H=g.H, W=g.W, S=g.S, N=1, K=1, blocked=False,
-        tag="coco2voc-n1k1", rpn_test_nms_pre=bench.COCO2VOC_NMS_PRE)
-    del model, batch
-    kernel_records(calls, iters=PRINTED_ITERS, where="coco2voc-n1k1")
-    del calls
-    torch.cuda.empty_cache()
-    model, batch, calls, res["flagship_alt"] = phase_main_path(
-        dev, gpu, B=4, blocked=False, tag="flagship-b4")
-    del model, batch
-    kernel_records(calls, iters=PRINTED_ITERS, where="flagship-b4")
-    del calls
-    torch.cuda.empty_cache()
-    res.update(bench.describe(dev))
-    line = bench.report(res)
-    for k, v in line.items():
-        if k == "mfu" or k.endswith("_mfu") or k == "mfu_b4":
-            check(0 < v <= 1, f"bench: {k} {v} not in (0, 1]")
-    return line
-
-
 # Runs a kernel's time is the median of (``cuda_ms``) in the records that
 # are printed only (main path, COCO2VOC serving and N1K1, flagship b4,
 # train path, engine-train K1 and K2, ft-train, ft-eval, coco2voc-train K1
 # and K1-bwd, coco2voc-eval, coco2voc-ft-train): 4, not 20, the cuts that
-# pay for the bench and the K4 phase; every call is still held against its
-# plain version.
+# paid for earlier phases; every call is still held against its plain
+# version.
 # The records the kernels line reads (eval's, the engine's K1-bwd, COCO2VOC
 # stage 1's unstaged K2) keep 20.
 PRINTED_ITERS = 4
@@ -3943,10 +3814,10 @@ PRINTED_ITERS = 4
 PHASES = ("roi_align", "roi_align_backward", "nms", "group_norm",
           "vit_attention", "main_path",
           "plain_twin",
-          "coco2voc_serve", "train", "bench", "train_twin", "engine", "eval",
+          "coco2voc_serve", "train", "train_twin", "engine", "eval",
           "runner", "cocovoc", "dp")
 KERNEL_KEYS = ("name", "route", "source", "replaces", "path", "launches",
-               "launches_bench", "launches_runner", "launches_finetune",
+               "launches_main_paths", "launches_runner", "launches_finetune",
                "launches_dp", "launches_coco2voc", "coco2voc_unstaged",
                "max_abs_err", "ms",
                "earlier_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3971,8 +3842,6 @@ def main(argv=None):
         ap.error(f"unknown phases {sorted(want - set(PHASES))}")
     if want & {"eval", "runner", "dp"}:
         want.add("engine")
-    if "bench" in want:
-        want |= {"main_path", "coco2voc_serve", "train"}
     try:
         import torch
     except ImportError:
@@ -3988,8 +3857,6 @@ def main(argv=None):
         print(f"chip_smoke: the fgn_torch package is missing ({e})",
               file=sys.stderr)
         return 2
-    from fgn_torch.bench import gpu_line
-
     dev = torch.device("cuda:0")
     gpu = gpu_line()
     print(f"gpu: {gpu}; torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -4013,7 +3880,9 @@ def main(argv=None):
         print(f"phase {name}: {now - phase_t[0]:.1f} s", flush=True)
         phase_t[0] = now
 
-    bench_res = {}
+    # each main path's launches: a forward's at each serving geometry, a
+    # train step's
+    path_launches = {}
     if "roi_align" in want:
         phase_roi_align(dev, [
             ("support", 72, 8, 8, 1024, 1),
@@ -4054,14 +3923,8 @@ def main(argv=None):
         recs["vit_attention"] = phase_vit_attention(dev, gpu)
         phase_done("vit_attention")
     if "main_path" in want:
-        model, batch, calls, bench_res["flagship"] = phase_main_path(
-            dev, gpu)
-        # the FLOP count must not depend on the route: the plain versions'
-        # einsums, which the counter sees, are left out as the kernels' calls
-        check_route_flops(
-            "main path flagship", bench_res["flagship"],
-            plain_route_flops(lambda: model.test_forward(batch)),
-            batch.qry_img.shape[0])
+        model, batch, calls, path_launches["forward_flagship_b8"] = (
+            phase_main_path(dev, gpu))
         # printed; the JSON keeps this slice's paths
         kernel_records(calls, iters=PRINTED_ITERS)
         if args.profile:
@@ -4076,29 +3939,40 @@ def main(argv=None):
                 "forward", lambda: model.test_forward(batch), "request")
         del model, batch, calls
         torch.cuda.empty_cache()
+        model, batch, calls, path_launches["forward_flagship_b4"] = (
+            phase_main_path(dev, gpu, B=4, tag="flagship-b4"))
+        del model, batch
+        kernel_records(calls, iters=PRINTED_ITERS, where="flagship-b4")
+        del calls
+        torch.cuda.empty_cache()
         phase_done("main_path")
     if "plain_twin" in want:
         phase_plain_twin(dev)
         torch.cuda.empty_cache()
         phase_done("plain_twin")
     if "coco2voc_serve" in want:
-        model, batch, calls, bench_res["coco2voc_n3k3"] = phase_main_path(
-            dev, gpu, B=4, H=800, W=1088, S=256, blocked=False,
-            tag="coco2voc", rpn_test_nms_pre=6144)
-        del model, batch
-        # K2 at the longest walk (Mp = 6144); printed, the JSON keeps the
-        # flagship's largest call
-        kernel_records(calls, iters=PRINTED_ITERS, where="coco2voc",
-                       names=("nms_keep",))
-        if args.profile:
-            k2_sweep("coco2voc", next(a for name, a, _ in calls
-                                      if name == "nms_keep"))
-        del calls
-        torch.cuda.empty_cache()
+        for tag, n, k in COCO2VOC_WAYS:
+            model, batch, calls, path_launches[f"forward_coco2voc_n{n}k{k}"] = (
+                phase_main_path(dev, gpu, N=n, K=k, tag=tag,
+                                rpn_test_nms_pre=COCO2VOC_NMS_PRE,
+                                **COCO2VOC_GEOMETRY))
+            del model, batch
+            if n == 1:  # K1 on 4 support maps of R = 1, K2 with one way
+                kernel_records(calls, iters=PRINTED_ITERS, where=tag)
+            else:
+                # K2 at the longest walk (Mp = 6144); printed, the JSON
+                # keeps the flagship's largest call
+                kernel_records(calls, iters=PRINTED_ITERS, where=tag,
+                               names=("nms_keep",))
+                if args.profile:
+                    k2_sweep(tag, next(a for name, a, _ in calls
+                                       if name == "nms_keep"))
+            del calls
+            torch.cuda.empty_cache()
         phase_done("coco2voc_serve")
     if "train" in want:
-        _, fwd_calls, bwd_calls, nms_calls, bench_res["train"] = phase_train(
-            dev, gpu, profile=args.profile)
+        (path_launches["train_step_b12"], fwd_calls, bwd_calls,
+         nms_calls) = phase_train(dev, gpu, profile=args.profile)
         for i, (a, k) in enumerate(fwd_calls):
             k1_record("train-path", i, a, k, iters=PRINTED_ITERS)
         kernel_records(nms_calls, iters=PRINTED_ITERS, where="train-path")
@@ -4108,9 +3982,6 @@ def main(argv=None):
         del toy, fwd_calls, bwd_calls, nms_calls
         torch.cuda.empty_cache()
         phase_done("train")
-    if "bench" in want:
-        print(json.dumps(phase_bench(dev, gpu, bench_res)), flush=True)
-        phase_done("bench")
     if "train_twin" in want:
         phase_train_twin(dev)
         torch.cuda.empty_cache()
@@ -4168,10 +4039,9 @@ def main(argv=None):
     for name, rec in recs.items():
         if name in ("group_norm", "vit_attention"):  # counted by their phases
             continue
-        if "bench" in want:  # a forward's (a train step's) launches
-            rec["launches_bench"] = {w: r["launches"][name]
-                                     for w, r in bench_res.items()
-                                     if isinstance(r, dict) and "launches" in r}
+        if path_launches:  # a forward's (a train step's) launches
+            rec["launches_main_paths"] = {w: c[name]
+                                          for w, c in path_launches.items()}
         if "runner" in launches:
             rec["launches_runner"] = launches["runner"][name]
             rec["launches_finetune"] = launches["finetune"][name]

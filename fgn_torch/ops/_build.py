@@ -48,8 +48,6 @@ _SIGNATURES = {
     "nms": {
         "fgn_nms_keep": ([_P, _P, _P, _I, _I, _F, _I, _I, _P], _I),
         "fgn_nms_walk_clusters": ([_I, _I, _I], _I),
-        "fgn_nms_keep_bitmask": (
-            [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P], _I),
         "fgn_nms_error_string": ([_I], ctypes.c_char_p),
     },
     "group_norm": {

@@ -23,7 +23,6 @@ import functools
 import torch
 
 from fgn_torch.ops import _build
-from fgn_torch.ops.flops import k2_ops, kernel_call
 from fgn_torch.ops.nms import _CHUNK, _greedy_alive
 from fgn_torch.utils.profiling import count
 
@@ -73,15 +72,7 @@ def _max_clusters(device: int, g: int, Mp: int, staged: bool) -> int:
 
 def greedy_alive_cuda(boxes_s, alive, iou_threshold: float, block: int = 128):
     """``alive_fn`` for ``nms_padded``: boxes_s (B, Mp, 4) f32 score-sorted
-    XYXY, alive (B, Mp) bool, Mp a multiple of ``block``. → (B, Mp) bool.
-    A kernel call to ``flops.count_flops``."""
-    return kernel_call(
-        lambda: _greedy_keep(boxes_s, alive, iou_threshold, block),
-        lambda keep: k2_ops(keep, alive))
-
-
-def _greedy_keep(boxes_s, alive, iou_threshold: float, block: int):
-    """``greedy_alive_cuda`` on the boxes' device."""
+    XYXY, alive (B, Mp) bool, Mp a multiple of ``block``. → (B, Mp) bool."""
     if boxes_s.device.type == "cpu":
         return _greedy_alive(boxes_s, alive, iou_threshold, block)
     if boxes_s.device.type != "cuda":

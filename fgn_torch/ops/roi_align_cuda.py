@@ -40,7 +40,6 @@ import functools
 import torch
 
 from fgn_torch.ops import _build
-from fgn_torch.ops.flops import ROI_ALIGN_FLOPS, kernel_call
 from fgn_torch.utils.profiling import count
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -391,17 +390,7 @@ def roi_align_backward_cuda(g, rois, H: int, W: int, out_size: int = 7,
     (B, H, W, C) in g's dtype (the map's dtype). For a CUDA tensor the
     staged backward kernel where ``_bwd_channel_tile`` finds a tile and g is
     16-byte aligned, else the atomics kernel; the plain version for a CPU
-    tensor. A kernel call to ``flops.count_flops``."""
-    return kernel_call(
-        lambda: _roi_align_backward(g, rois, H, W, out_size, spatial_scale,
-                                    sampling_ratio, aligned),
-        lambda _df: ROI_ALIGN_FLOPS * g.numel())
-
-
-def _roi_align_backward(g, rois, H: int, W: int, out_size: int,
-                        spatial_scale: float, sampling_ratio: int,
-                        aligned: bool):
-    """``roi_align_backward_cuda`` on the gradient's device."""
+    tensor."""
     if g.device.type == "cpu":
         return _roi_align_plain_bwd(g, rois, H, W, g.dtype, out_size,
                                     spatial_scale, sampling_ratio, aligned)
@@ -460,9 +449,6 @@ class _RoIAlign(torch.autograd.Function):
 def roi_align_cuda(fmap, rois, out_size: int = 7, spatial_scale: float = 1.0,
                    sampling_ratio: int = 2, aligned: bool = True):
     """(B, H, W, C) map, (B, R, 4) XYXY f32 rois → (B, R, O, O, C) in the
-    map's dtype (f32 or bf16). Differentiable with respect to the map. A
-    kernel call to ``flops.count_flops``."""
-    return kernel_call(
-        lambda: _RoIAlign.apply(fmap, rois, out_size, spatial_scale,
-                                sampling_ratio, aligned),
-        lambda out: ROI_ALIGN_FLOPS * out.numel())
+    map's dtype (f32 or bf16). Differentiable with respect to the map."""
+    return _RoIAlign.apply(fmap, rois, out_size, spatial_scale,
+                           sampling_ratio, aligned)

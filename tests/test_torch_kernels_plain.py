@@ -23,7 +23,15 @@ The NMS kernel's walk (``_greedy_alive_walk``: chunks of 32 rows, the kept
 rows of one chunk suppressing the later columns while the next chunk is
 decided, chunks after the last alive row skipped) and its wrapper's rules
 (``_staged``, ``_cluster_size``) are held here too.
+
+So are the ctypes bindings (``ops/_build._SIGNATURES``,
+``native._SIGNATURES``) against the ``extern "C"`` definitions of their
+sources, read as text: no compiler is needed.
 """
+
+import ctypes
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -562,3 +570,80 @@ def test_nms_wrapper_rejects_other_devices():
         greedy_alive_cuda(boxes, torch.zeros((1, 128), dtype=torch.bool,
                                              device="meta"), 0.5)
     assert counts() == before
+
+
+# --- the ctypes bindings against their C sources ------------------------------
+#
+# A binding whose argument list drifts from its C definition corrupts memory
+# silently on the card, and nothing compiles there until a call. So each
+# bound function must be defined inside its source's ``extern "C"`` blocks
+# with as many parameters as its ``argtypes``, each of the kind ctypes passes
+# (a pointer as ``c_void_p`` or ``c_char_p``), and every function defined
+# there must be bound.
+
+_C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float,
+            "long long": ctypes.c_longlong}
+
+
+def _c_kind(decl: str):
+    """The ctypes kinds a C parameter or return type may be bound as."""
+    if "*" in decl:
+        return (ctypes.c_char_p,) if re.search(r"\bchar\s*\*", decl) else (
+            ctypes.c_void_p, ctypes.c_char_p)
+    words = re.sub(r"\b(const|unsigned|signed)\b", " ", decl).split()
+    return (_C_TYPES[" ".join(words[:-1])],)  # less the name
+
+
+def _extern_c_functions(path: Path):
+    """{name: (return type, [parameter declarations])} of the functions
+    defined at the top level of the file's ``extern "C"`` blocks."""
+    src = re.sub(r"//[^\n]*|/\*.*?\*/", "", path.read_text(), flags=re.S)
+    found = {}
+    for start in re.finditer(r'extern\s+"C"\s*\{', src):
+        depth, top = 1, []  # the block's text outside nested braces
+        for ch in src[start.end():]:
+            depth += (ch == "{") - (ch == "}")
+            if depth == 0:
+                break
+            if depth == 1 or (depth == 2 and ch == "{"):
+                top.append(ch)
+        for m in re.finditer(r"([A-Za-z_][\w\s\*]*?)\b(\w+)\s*\(([^()]*)\)\s*\{",
+                             "".join(top)):
+            params = [p.strip() for p in m.group(3).split(",")
+                      if p.strip() not in ("", "void")]
+            found[m.group(2)] = (m.group(1).strip(), params)
+    return found
+
+
+def _binding_sources():
+    from fgn_torch import native
+    from fgn_torch.ops import _build
+
+    out = {name: (_build.SRC_DIR / f"{name}.cu", sigs)
+           for name, sigs in _build._SIGNATURES.items()}
+    out["rle"] = (native.SRC, native._SIGNATURES)
+    return out
+
+
+@pytest.mark.parametrize("name", ["roi_align", "nms", "group_norm",
+                                  "vit_attention", "rle"])
+def test_bindings_match_sources(name):
+    path, sigs = _binding_sources()[name]
+    defined = _extern_c_functions(path)
+    assert set(defined) == set(sigs), (
+        f"{path.name}: defined but not bound {sorted(set(defined) - set(sigs))}"
+        f", bound but not defined {sorted(set(sigs) - set(defined))}")
+    for fn, (argtypes, restype) in sigs.items():
+        ret, params = defined[fn]
+        assert len(params) == len(argtypes), (fn, params, argtypes)
+        for i, (decl, bound) in enumerate(zip(params, argtypes)):
+            assert bound in _c_kind(decl), (fn, i, decl, bound)
+        assert restype in _c_kind(ret + " x"), (fn, ret, restype)
+
+
+def test_every_source_is_bound():
+    from fgn_torch.ops import _build
+
+    sources = {p.stem for p in _build.SRC_DIR.glob("*.cu")}
+    assert sources == set(_build._SIGNATURES)
+    assert sources == {"roi_align", "nms", "group_norm", "vit_attention"}
