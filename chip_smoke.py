@@ -23,7 +23,11 @@ blocks and windows, the supports' global blocks and windows) and at two
 more grids, timed, its largest call beside its FLOP bound, the plain
 version and the library's SDPA over the bias in memory, and counted a ViT
 cell request (one launch an ``attend``, no bias in memory, no SDPA call).
-Then it drives the three paths through the kernels with launch counters:
+The optimizer's multi-tensor update (K5) is held bit for bit against the
+optimizer's plain route over the OMNIISEG cell's 189 tensors (Adagrad and
+Adam, three steps, one gradient missing) in the training phase, and timed
+beside its byte bound and the plain route. Then it drives the three paths
+through the kernels with launch counters:
 
   * episodic inference, ``FGN.test_forward`` (R50-C4, N3K3, 480 px, batch
     8 and batch 4, bf16, seeded random weights), compared as a whole
@@ -33,10 +37,10 @@ Then it drives the three paths through the kernels with launch counters:
     each, a forward with its launches counted and its outputs checked, and
     each kernel held against its plain version at one more forward's calls;
   * training, ``make_train_step`` (``FGN.train_forward``, backward, Adam):
-    5 full-width steps at b12 bf16, every step's launches counted, the step
-    split at the program's spans, each kernel held at one more step's
-    calls, and an f32 training twin at b2 through the kernels and through
-    the plain versions;
+    5 full-width steps at b12 bf16, every step's launches counted (K5 once,
+    every tensor on it), the step split at the program's spans, each kernel
+    held at one more step's calls, and an f32 training twin at b2 through
+    the kernels and through the plain versions;
   * the system as a user runs it, from ``configs/fgn_train_mnistiseg_n3k3.py``
     (R50-C4, GN, deep stem, avg-down, N3K3, bf16): the episode engine held
     stage by stage to the committed reference (``data/digests.py``: OpenCV
@@ -1526,8 +1530,9 @@ def phase_train(dev, gpu, B=12, steps=5, profile=False):
     """The full-width trainer (``make_train``) on the flagship at b12 bf16:
     ``steps`` steps, each with the launch counters set to 0 just before it
     and read just after, their losses finite and both parameter groups
-    moved; the step's split at the program's spans. → (the launches of one
-    step, the K1 forward, K1-bwd and K2 calls of one more step). With
+    moved, K5 launched once with every tensor; the step's split at the
+    program's spans; then ``k5_check``. → (the launches of one step, the K1
+    forward, K1-bwd and K2 calls of one more step, K5's record). With
     ``profile``, one more step is profiled: its forward by stage, and the
     whole step by op."""
     import torch
@@ -1536,15 +1541,20 @@ def phase_train(dev, gpu, B=12, steps=5, profile=False):
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counts, metrics = [], []
+    counts, metrics, k5 = [], [], []
     counted_step = counted(step, counts)
     for _ in range(steps):
         metrics.append(counted_step(batch, gen))
+        k5.append(k5_counts())
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     check(all(c == TRAIN_KERNELS for c in counts),
           f"train step: want {steps} steps of {TRAIN_KERNELS}, got "
           f"{[c for c in counts if c != TRAIN_KERNELS][:2]}")
+    want_k5 = {"k5.launches": 1, "k5.tensors": len(before),
+               "opt.plain_tensors": 0}
+    check(all(c == want_k5 for c in k5),
+          f"train step: K5's counters {k5[0]}, want {want_k5} a step")
     bad = [k for m in metrics for k, v in m.items()
            if k.startswith("loss_") and not bool(torch.isfinite(v))]
     check(not bad, f"train step: non-finite {bad}")
@@ -1571,7 +1581,152 @@ def phase_train(dev, gpu, B=12, steps=5, profile=False):
         phase_breakdown(
             "train step", lambda: step(batch, gen), "step")
     del model, opt, before, batch
-    return counts[0], fwd_calls, calls, nms_calls
+    torch.cuda.empty_cache()
+    # K5's launches as counted in the main path's first step
+    k5_rec = dict(k5_check(dev, gpu), launches=k5[0]["k5.launches"])
+    return counts[0], fwd_calls, calls, nms_calls, k5_rec
+
+
+# K5's counters a step (fgn_torch/ops/optim_cuda.py, train/optim.py)
+K5_COUNTERS = ("k5.launches", "k5.tensors", "opt.plain_tensors")
+# bytes a parameter K5 moves: p, g and the state read, p and the state
+# written
+K5_BYTES = {"adagrad": 20, "adam": 28}
+
+
+def k5_counts():
+    from fgn_torch.utils.profiling import counts
+
+    now = counts()
+    return {k: now.get(k, 0) for k in K5_COUNTERS}
+
+
+def ulps(a, b):
+    """The largest distance in float32 units in the last place between a
+    and b (same shape)."""
+    import torch
+
+    def key(x):  # float32 bits as integers ordered like the values
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return int((key(a) - key(b)).abs().max()) if a.numel() else 0
+
+
+def k5_check(dev, gpu, steps=3, seed=7):
+    """K5 against the plain route (``optim_cuda.takes`` refusing every
+    tensor) on the OMNIISEG cell's parameter list
+    (``benchmark/configs/omniiseg-n3k3-480.json``: 189 tensors), for Adagrad
+    and Adam: the same ``steps`` gradients (the first tensor's missing in
+    the second step) through the config's schedule, the parameters and the
+    state compared bit for bit (Adagrad within 2 ulp, where rsqrtf would
+    differ), each step's counters (one launch, every tensor on K5). Then
+    each route's step timed: K5's launches of a step on the card alone
+    (``device_ms``, packed once), a K5 step between CUDA events and its host
+    enqueue, the plain route's the same. → the kernels line's record
+    (Adagrad's, the train cells' rule)."""
+    import time
+
+    import torch
+
+    from fgn_torch.models.fgn import build_model
+    from fgn_torch.ops import optim_cuda
+    from fgn_torch.train.optim import FGNOptimizer, make_lr_schedule
+
+    model = build_model(bench_cfg("omniiseg-n3k3-480"), dev, seed=0)
+    named = [(n, p.detach()) for n, p in model.named_parameters()]
+    del model
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    grads = [[torch.randn(p.shape, generator=gen, device=dev) * 0.01
+              for _, p in named] for _ in range(steps)]
+    grads[1][0] = None
+    n_par = sum(p.numel() for _, p in named)
+    T = len(named)
+    refuse = lambda *a: False  # noqa: E731 — the plain route everywhere
+    recs = {}
+    for kind in ("adagrad", "adam"):
+        runs = {}
+        for route in ("plain", "k5"):
+            params = [(n, p.clone().requires_grad_()) for n, p in named]
+            opt = FGNOptimizer(params, optimizer=kind,
+                               schedule=make_lr_schedule(
+                                   5e-3, steps_per_epoch=1000))
+            ps = [p for _, p in params]
+            with contextlib.ExitStack() as stack:
+                if route == "plain":
+                    stack.enter_context(
+                        mock.patch.object(optim_cuda, "takes", refuse))
+                for s in range(steps):
+                    for p, g in zip(ps, grads[s]):
+                        p.grad = g
+                    zero_counts()
+                    opt.step()
+                    c = k5_counts()
+                    want = ({"k5.launches": 1, "k5.tensors": T,
+                             "opt.plain_tensors": 0} if route == "k5" else
+                            {"k5.launches": 0, "k5.tensors": 0,
+                             "opt.plain_tensors": T})
+                    check(c == want, f"K5 {kind} {route} step {s}: counters "
+                                     f"{c}, want {want}")
+                torch.cuda.synchronize()
+                runs[route] = ps, opt
+        (pa, oa), (pb, ob) = runs["plain"], runs["k5"]
+        pairs = [(a, b) for a, b in zip(pa, pb)]
+        pairs += [(oa.state[a][k], ob.state[b][k]) for a, b in zip(pa, pb)
+                  for k in oa.state[a] if isinstance(oa.state[a][k],
+                                                     torch.Tensor)]
+        unequal = sum(not torch.equal(a, b) for a, b in pairs)
+        gap = max(ulps(a, b) for a, b in pairs)
+        err = max(float((a - b).abs().max()) for a, b in pairs if a.numel())
+        check(oa.state["count"] == ob.state["count"] == steps,
+              f"K5 {kind}: counts {oa.state['count']}, {ob.state['count']}")
+        check(all(oa.state[a].get("t") == ob.state[b].get("t")
+                  for a, b in zip(pa, pb)), f"K5 {kind}: step counts differ")
+        check(unequal == 0 or (kind == "adagrad" and gap <= 2),
+              f"K5 {kind}: {unequal} of {len(pairs)} tensors differ from the "
+              f"plain route, by up to {gap} ulp")
+
+        # timing: both routes carry on from their state, same gradients
+        def host_ms(opt, n=10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                opt.step()
+            ms = (time.perf_counter() - t0) * 1e3 / n
+            torch.cuda.synchronize()
+            return ms
+
+        # the kernel alone: one step's launches again, packed once
+        packed = []
+        real_run = optim_cuda.run
+        with mock.patch.object(optim_cuda, "run",
+                               lambda *a: (packed.append(a), real_run(*a))):
+            ob.step()
+        k5_ms = device_ms(lambda: real_run(*packed[0]), n=20, iters=5)
+        k5_host = host_ms(ob)
+        k5_wall = cuda_ms(ob.step, iters=5)
+        with mock.patch.object(optim_cuda, "takes", refuse):
+            plain_ms = cuda_ms(oa.step, iters=5)
+            plain_host = host_ms(oa, n=3)
+        bound = n_par * K5_BYTES[kind] / HBM_BYTES_S * 1e3
+        print(f"K5 {kind}: {T} tensors, {n_par} parameters, {steps} steps "
+              f"(a gradient missing in one): bit-exact {unequal == 0} "
+              f"({unequal} of {len(pairs)} tensors differ, largest gap "
+              f"{gap} ulp, {err:.3g} absolute); a step: its launches on the "
+              f"card {k5_ms:.4f} ms, bound {bound:.4f} ms (bytes, "
+              f"{K5_BYTES[kind]} a parameter), "
+              f"between events {k5_wall:.4f} ms, host enqueue {k5_host:.4f} "
+              f"ms; plain route between events {plain_ms:.3f} ms, host "
+              f"enqueue {plain_host:.3f} ms; on {gpu}", flush=True)
+        recs[kind] = dict(max_abs_err=err, max_ulp=gap, ms=k5_ms,
+                          plain_ms=plain_ms, bound_ms=bound)
+        del runs, pa, pb, oa, ob, pairs
+        torch.cuda.empty_cache()
+    return dict(recs["adagrad"], name="optim", route="cuda",
+                source="fgn_torch/csrc/optim.cu",
+                replaces="none (XLA fuses optax's chain)",
+                path=f"the OMNIISEG cell's {T} tensors, Adagrad, a step",
+                bound_by="bytes")
 
 
 def capture_train_calls(step, batch, gen):
@@ -3819,7 +3974,7 @@ PHASES = ("roi_align", "roi_align_backward", "nms", "group_norm",
 KERNEL_KEYS = ("name", "route", "source", "replaces", "path", "launches",
                "launches_main_paths", "launches_runner", "launches_finetune",
                "launches_dp", "launches_coco2voc", "coco2voc_unstaged",
-               "max_abs_err", "ms",
+               "max_abs_err", "max_ulp", "ms",
                "earlier_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
@@ -3972,7 +4127,8 @@ def main(argv=None):
         phase_done("coco2voc_serve")
     if "train" in want:
         (path_launches["train_step_b12"], fwd_calls, bwd_calls,
-         nms_calls) = phase_train(dev, gpu, profile=args.profile)
+         nms_calls, recs["optim"]) = phase_train(dev, gpu,
+                                                 profile=args.profile)
         for i, (a, k) in enumerate(fwd_calls):
             k1_record("train-path", i, a, k, iters=PRINTED_ITERS)
         kernel_records(nms_calls, iters=PRINTED_ITERS, where="train-path")
@@ -4037,8 +4193,8 @@ def main(argv=None):
                               path="eval pass 1, " + CONFIG)
         del eval_calls
     for name, rec in recs.items():
-        if name in ("group_norm", "vit_attention"):  # counted by their phases
-            continue
+        if name in ("group_norm", "vit_attention", "optim"):
+            continue  # counted by their phases
         if path_launches:  # a forward's (a train step's) launches
             rec["launches_main_paths"] = {w: c[name]
                                           for w, c in path_launches.items()}
@@ -4061,7 +4217,7 @@ def main(argv=None):
 
     kernels = [{k: recs[name][k] for k in KERNEL_KEYS if k in recs[name]}
                for name in ("roi_align", "roi_align_backward", "nms_keep",
-                            "group_norm", "vit_attention")
+                            "group_norm", "vit_attention", "optim")
                if name in recs]
     print(gpu_line())
     print(json.dumps({"kernels": kernels}))

@@ -62,6 +62,10 @@ _SIGNATURES = {
              _L, _L, _L, _I, _F, _P], _I),
         "fgn_vit_attention_error_string": ([_I], ctypes.c_char_p),
     },
+    "optim": {
+        "fgn_optim_step": ([_I, _P, _I, _P, _I, _P], _I),
+        "fgn_optim_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -25,15 +25,31 @@ parameter p with gradient g, in float32:
     u = sqrt(ex + 1e-6) / sqrt(eg + 1e-6) · g; ex = 0.1 u² + 0.9 ex;
 
 then u += wd · p and p += -(lr_mult · schedule(count)) · u, count being
-the number of updates applied before this one.
+the number of updates applied before this one. Adam's bias corrections are
+rounded to float32, as optax computes them, and applied through their
+reciprocals, as torch on CUDA divides a tensor by a Python number.
+
+Routes, chosen per tensor from what the step can observe: a CUDA float32
+tensor under Adagrad or Adam goes to K5 (``ops/optim_cuda.py``: every such
+tensor of a device in one launch, or a few; its gradient is the
+``MultiSteps`` mean on the step that applies it; a layout the kernel cannot
+walk raises), counted as ``k5.tensors``; every other updated tensor (the
+CPU, float64, SGD, Adadelta) takes the plain route below, one tensor at a
+time, counted as ``opt.plain_tensors``. Both give the same bits on the
+card.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Callable, Sequence
+from typing import Callable, Sequence, Tuple
 
+import numpy as np
 import torch
+
+from fgn_torch.ops import optim_cuda
+from fgn_torch.utils.profiling import count
 
 # Top-level module names (the flax ones) that belong to the RoI head.
 ROI_HEAD_MODULES = (
@@ -43,6 +59,22 @@ ROI_HEAD_MODULES = (
     "mask_deconv", "mask_logits",
 )
 OPTIMIZERS = ("adagrad", "adam", "sgd", "adadelta")
+# Each rule's state tensors, in K5's record order (s0, s1).
+_STATES = {"adagrad": ("acc",), "adam": ("mu", "nu"), "sgd": ("m",),
+           "adadelta": ("eg", "ex")}
+
+
+@functools.lru_cache(maxsize=256)
+def adam_scales(t: int, dtype: torch.dtype) -> Tuple[float, float]:
+    """1 / (1 - 0.9^t) and 1 / (1 - 0.999^t): the bias corrections rounded
+    to float32, as optax computes them, and their reciprocals in ``dtype``,
+    as torch on CUDA computes the reciprocal of a Python divisor."""
+    out = []
+    for b in (0.9, 0.999):
+        c = float(1.0 - torch.tensor(b, dtype=torch.float32) ** t)
+        out.append(float(np.float32(1.0) / np.float32(c))
+                   if dtype == torch.float32 else 1.0 / c)
+    return out[0], out[1]
 
 
 def make_lr_schedule(
@@ -130,31 +162,39 @@ class FGNOptimizer(torch.optim.Optimizer):
         self.state["count"] = 0
         self.state["mini_step"] = 0
 
-    def _scale(self, p, g):
-        """The scaler's update direction for p, its state advanced."""
+    def _states(self, p):
+        """p's state tensors (made at its first update) and, for Adam, its
+        step count t advanced."""
         st = self.state[p]
+        made = []
+        for name in _STATES[self.kind]:
+            if name not in st:
+                st[name] = (torch.full_like(p, 0.1) if name == "acc"
+                            else torch.zeros_like(p))
+            made.append(st[name])
+        if self.kind == "adam":
+            st["t"] = st.get("t", 0) + 1
+        return made
+
+    def _scale(self, p, g, states):
+        """The scaler's update direction for p, its state advanced."""
         if self.kind == "adagrad":
-            acc = st.setdefault("acc", torch.full_like(p, 0.1))
+            (acc,) = states
             acc.add_(g * g)
             inv = torch.where(acc > 0, torch.rsqrt(acc + 1e-7),
                               torch.zeros((), device=p.device))
             return inv * g
         if self.kind == "adam":
-            mu = st.setdefault("mu", torch.zeros_like(p))
-            nu = st.setdefault("nu", torch.zeros_like(p))
-            t = st["t"] = st.get("t", 0) + 1
+            mu, nu = states
+            r1, r2 = adam_scales(self.state[p]["t"], p.dtype)
             mu.copy_(0.1 * g + 0.9 * mu)
             nu.copy_(0.001 * (g * g) + 0.999 * nu)
-            # bias corrections rounded to float32, as optax computes them
-            c1 = float(1.0 - torch.tensor(0.9, dtype=torch.float32) ** t)
-            c2 = float(1.0 - torch.tensor(0.999, dtype=torch.float32) ** t)
-            return (mu / c1) / (torch.sqrt(nu / c2) + 1e-8)
+            return (mu * r1) / (torch.sqrt(nu * r2) + 1e-8)
         if self.kind == "sgd":
-            m = st.setdefault("m", torch.zeros_like(p))
+            (m,) = states
             m.copy_(g + 0.9 * m)
             return g + 0.9 * m
-        eg = st.setdefault("eg", torch.zeros_like(p))
-        ex = st.setdefault("ex", torch.zeros_like(p))
+        eg, ex = states
         eg.copy_(0.1 * (g * g) + 0.9 * eg)
         u = torch.sqrt(ex + 1e-6) / torch.sqrt(eg + 1e-6) * g
         ex.copy_(0.1 * (u * u) + 0.9 * ex)
@@ -177,17 +217,35 @@ class FGNOptimizer(torch.optim.Optimizer):
                 return None
             self.state["mini_step"] = 0
         lr = torch.tensor(self.schedule(self.state["count"]), dtype=torch.float32)
+        fused, plain = {}, 0  # device → (its K5 tensors, their records)
         for group in self.param_groups:
             if group["label"] == "frozen":
                 continue
             step_size = (-group["lr_mult"] * lr).item()
+            wd = group["weight_decay"]
             for p in group["params"]:
-                if k > 1:
-                    g = self.state[p]["acc_grad"]
-                else:
-                    g = p.grad if p.grad is not None else torch.zeros_like(p)
-                u = self._scale(p, g) + group["weight_decay"] * p
+                g = self.state[p]["acc_grad"] if k > 1 else p.grad
+                states = self._states(p)
+                if optim_cuda.takes(self.kind, p):
+                    ps, rows = fused.setdefault(p.device, ([], []))
+                    ps.append(p)
+                    r = (adam_scales(self.state[p]["t"], p.dtype)
+                         if self.kind == "adam" else (0.0, 0.0))
+                    rows.append(optim_cuda.record(p, g, states, step_size,
+                                                  wd, *r))
+                    continue
+                plain += 1
+                if g is None:
+                    g = torch.zeros_like(p)
+                u = self._scale(p, g, states) + wd * p
                 p.add_(step_size * u)
+        count("opt.plain_tensors", plain)
+        for device, (ps, rows) in fused.items():
+            optim_cuda.run(self.kind, optim_cuda.pack(rows),
+                           optim_cuda.plan(tuple(p.numel() for p in ps)),
+                           device)
+            torch.autograd.graph.increment_version(ps)
+            count("k5.tensors", len(ps))
         if k > 1:
             for p in params:
                 self.state[p]["acc_grad"].zero_()

@@ -626,7 +626,7 @@ def _binding_sources():
 
 
 @pytest.mark.parametrize("name", ["roi_align", "nms", "group_norm",
-                                  "vit_attention", "rle"])
+                                  "vit_attention", "optim", "rle"])
 def test_bindings_match_sources(name):
     path, sigs = _binding_sources()[name]
     defined = _extern_c_functions(path)
@@ -646,4 +646,5 @@ def test_every_source_is_bound():
 
     sources = {p.stem for p in _build.SRC_DIR.glob("*.cu")}
     assert sources == set(_build._SIGNATURES)
-    assert sources == {"roi_align", "nms", "group_norm", "vit_attention"}
+    assert sources == {"roi_align", "nms", "group_norm", "vit_attention",
+                       "optim"}
