@@ -342,9 +342,10 @@ def phase_roi_align(dev, shapes, **over):
                                       f"{bound16}")
                 line.append(f"{tag} (f32/bf16): f32 err {e32:.3g} (vs gather "
                             f"{eg:.3g}), bf16 err {e16:.3g}")
+            ms = cuda_ms(lambda: k1_forward(fmap, rois, **kw), 20)
             print(f"K1 roi_align {name} B={B} map={h}x{w}x{C} R={R} {over}, scale "
-                  f"{scale:.3g}, bf16 bound {bound16:.3g}: " + "; ".join(line),
-                  flush=True)
+                  f"{scale:.3g}, bf16 bound {bound16:.3g}: " + "; ".join(line)
+                  + f"; picked, bf16: {ms:.4f} ms", flush=True)
 
 
 def k1bwd_atomic(g, rois, H, W, out_size=7, spatial_scale=1.0,
@@ -4044,6 +4045,10 @@ def main(argv=None):
             ("proposals", 8, 30, 30, 1024, 300),
             ("detections", 8, 30, 30, 1024, 100),
             ("coco2voc", 4, 50, 68, 1024, 300),  # ragged: 50x68 in 16-ch tiles
+            # the Swin-L cell's 768-channel C4 maps: queries, supports
+            ("swin_proposals", 4, 50, 68, 768, 300),
+            ("swin_detections", 4, 50, 68, 768, 100),
+            ("swin_support", 36, 8, 8, 768, 1),
             ("large", 1, 128, 128, 128, 64),  # past shared memory: direct
         ])
         # the staged kernel's generic instance (out_size, sampling ratio not

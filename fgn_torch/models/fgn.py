@@ -34,7 +34,7 @@ global loss. The diagnostics are the global batch's too.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +42,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from fgn_torch.config import FGNConfig
+from fgn_torch.config.swin import SwinConfig
 from fgn_torch.config.vit import ViTDetConfig
 from fgn_torch.data.batching import EpisodeBatch, mask_to_float, to_device
 from fgn_torch.models.losses import (
@@ -50,6 +51,7 @@ from fgn_torch.models.losses import (
 from fgn_torch.models.resnet import (
     Conv2d, GroupNorm, Linear, ResNetC4, SharedRes5, _nchw, _nhwc,
 )
+from fgn_torch.models.swin import Swin
 from fgn_torch.models.vit import ViT
 from fgn_torch.ops.anchors import anchor_inside_flags, generate_anchors
 from fgn_torch.ops.assign import max_iou_assign
@@ -100,11 +102,16 @@ def _conv1x1_nhwc(conv: Conv2d, x):
 
 
 class FGN(nn.Module):
-    """``backbone``: None for ResNet-50-C4 (``ResNetC4``), or a
+    """``backbone``: None for ResNet-50-C4 (``ResNetC4``), a
     ``ViTDetConfig`` for ViTDet's plain ViT (``models/vit.py``), whose
-    last map takes the C4 map's place: 1024 channels at stride 16."""
+    last map takes the C4 map's place (1024 channels at stride 16), or a
+    ``SwinConfig`` for the Swin Transformer (``models/swin.py``), whose
+    stride-16 stage does (768 channels for Swin-L). ``rpn_conv`` and
+    ``SharedRes5`` take the C4 map's width; from res5's output on, the
+    heads are 1024 wide whatever the backbone."""
 
-    def __init__(self, cfg: FGNConfig, backbone: Optional[ViTDetConfig] = None):
+    def __init__(self, cfg: FGNConfig,
+                 backbone: Union[ViTDetConfig, SwinConfig, None] = None):
         super().__init__()
         self.cfg = c = cfg
         dt = self.dt = _DTYPES[c.compute_dtype]
@@ -117,22 +124,29 @@ class FGN(nn.Module):
             raise ValueError(f"FGNConfig.remat: unknown blocks {sorted(unknown)}")
         A = c.num_anchors
         C = c.feat_channels
+        c4 = 1024  # the C4 map's width
         if backbone is None:
             self.backbone = ResNetC4(
                 norm=c.backbone_norm, frozen=c.backbone_frozen,
                 deep_stem=c.deep_stem, avg_down=c.avg_down, dtype=dt,
             )
+        elif isinstance(backbone, SwinConfig):
+            if backbone.stride != c.stride:
+                raise ValueError(f"a Swin backbone's out stage has stride "
+                                 f"{backbone.stride}, not the model's {c.stride}")
+            self.backbone = Swin(backbone, frozen=c.backbone_frozen, dtype=dt)
+            c4 = backbone.out_channels
         elif backbone.embed_dim != 1024 or backbone.patch_size != c.stride:
             raise ValueError("a ViT backbone gives FGN's heads 1024 channels at "
                              f"the model's stride {c.stride}: {backbone}")
         else:
             self.backbone = ViT(backbone, frozen=c.backbone_frozen, dtype=dt)
         # AG-RPN: one shared conv head over all gated maps.
-        self.rpn_conv = Conv2d(1024, C, 3, dtype=dt)
+        self.rpn_conv = Conv2d(c4, C, 3, dtype=dt)
         self.rpn_cls = Conv2d(C, A, 1, dtype=dt)
         self.rpn_reg = Conv2d(C, A * 4, 1, dtype=dt)
         # RoI tower
-        self.shared5 = SharedRes5(norm=c.res5_norm, dtype=dt)
+        self.shared5 = SharedRes5(norm=c.res5_norm, dtype=dt, in_channels=c4)
         self.rel_conv_roi = Conv2d(1024, 1024, 1, dtype=dt)
         # bias only on the roi half: conv(concat) has a single bias. With
         # guidance off there is no support half (and flax makes no params).
@@ -265,7 +279,7 @@ class FGN(nn.Module):
             )  # (B*NK, 1, 7, 7, C)
             feats = self._remat("res5", self.shared5,
                                 fmaps_aligned.reshape(B * NK, 7, 7, C))
-            feats = feats.reshape(B, N, K, 7, 7, C)
+            feats = feats.reshape(B, N, K, 7, 7, -1)  # res5's width
             spp_maps = feats.mean(dim=2)  # (B, N, 7, 7, C)
             weighted = feats * masks_aligned.reshape(
                 B, N, K, 7, 7, 1).to(feats.dtype)
@@ -282,7 +296,7 @@ class FGN(nn.Module):
         return roi_align(fmap, rois, 7, spatial_scale=scale)
 
     def _bbox_feats(self, qry_fmap, rois):
-        """(B,R,4) rois → (B,R,7,7,C) shared-res5 features."""
+        """(B,R,4) rois → (B,R,7,7,1024) shared-res5 features."""
         B, R = rois.shape[:2]
         C = qry_fmap.shape[-1]
         with span("roi"):
@@ -291,7 +305,7 @@ class FGN(nn.Module):
                 1.0 / self.cfg.stride)  # (B, R, 7, 7, C)
             feats = self._remat("res5", self.shared5,
                                 feats.reshape(B * R, 7, 7, C))
-            return feats.reshape(B, R, 7, 7, C)
+            return feats.reshape(B, R, 7, 7, -1)  # res5's width
 
     def _relation(self, bbox_feats, spp_maps):
         return self._remat("relation", self._relation_impl, bbox_feats,

@@ -222,11 +222,13 @@ class ResNetC4(nn.Module):
 
 class SharedRes5(nn.Module):
     """FGN shared head: res5 ResLayer with expansion 2, stride 1,
-    1024 → 1024. (P, 7, 7, 1024) NHWC in and out."""
+    ``in_channels`` → 1024. (P, 7, 7, in_channels) NHWC in, (P, 7, 7, 1024)
+    out; a width other than 1024 gives the first block a projection
+    shortcut."""
 
-    def __init__(self, norm="gn", dtype=torch.float32):
+    def __init__(self, norm="gn", dtype=torch.float32, in_channels=1024):
         super().__init__()
-        self.res5 = ResLayer(1024, 512, 3, 1, expansion=2, norm=norm,
+        self.res5 = ResLayer(in_channels, 512, 3, 1, expansion=2, norm=norm,
                              dtype=dtype)
 
     def forward(self, x):  # NHWC
