@@ -16,8 +16,13 @@ every GroupNorm call of the OMNIISEG b8 forward
 (``benchmark/configs/omniiseg-n3k3-480.json``: both routes, every
 epilogue) and at f32 twins, timed beside its byte bound, the plain version
 and the library's ``F.group_norm``, and its launches counted a forward
-(b8, b1, COCO2VOC b4: one a GroupNorm call) and a train step (none: every
-call is recorded by autograd). The ViT's attention (K4) is held against
+(b8, b1, COCO2VOC b4: one a GroupNorm call) and a train step (one forward
+and one backward launch a call, no call of the composition). Its gradient
+(K3-bwd) is held against the composition's at every GroupNorm call of a b8
+train step of that model, at f32 twins and with a frozen input or frozen
+weights, two calls bit for bit, and timed, forward and backward, beside
+their byte bound, the composition and ``F.group_norm`` under autograd.
+The ViT's attention (K4) is held against
 its plain version in f32 at the ViT cell's shapes (the queries' global
 blocks and windows, the supports' global blocks and windows) and at two
 more grids, timed, its largest call beside its FLOP bound, the plain
@@ -582,7 +587,8 @@ def phase_nms(dev, B=8, M=4096):
 
 # K3: GroupNorm with its epilogue (csrc/group_norm.cu) ---------------------
 
-GN_COUNTERS = ("gn.onepass", "gn.split", "gn.autograd")
+GN_COUNTERS = ("gn.onepass", "gn.split", "gn.train", "gn.bwd.onepass",
+               "gn.bwd.split")
 GN_EPS = 1e-5
 
 
@@ -606,9 +612,10 @@ def gn_counts():
     return {k: now.get(k, 0) for k in GN_COUNTERS}
 
 
-def capture_gn_calls(run):
+def capture_gn_calls(run, grads=False):
     """The GroupNorm calls of ``run()`` in order, each ((N, C, H, W), dtype,
-    groups, with a residual, with a ReLU), run through the plain version
+    groups, with a residual, with a ReLU) and with ``grads`` whether x,
+    weight and the residual require grad, run through the plain version
     (no K3 launch)."""
     import fgn_torch.models.resnet as resnet
     from fgn_torch.ops.group_norm_cuda import group_norm_plain
@@ -616,8 +623,11 @@ def capture_gn_calls(run):
     calls = []
 
     def rec(x, G, w, b, eps, dtype, residual=None, relu=False):
-        calls.append((tuple(x.shape), x.dtype, G, residual is not None,
-                      bool(relu)))
+        call = (tuple(x.shape), x.dtype, G, residual is not None, bool(relu))
+        if grads:
+            call += ((x.requires_grad, w.requires_grad,
+                      residual is not None and residual.requires_grad),)
+        calls.append(call)
         return group_norm_plain(x, G, w, b, eps, dtype, residual, relu)
 
     with mock.patch.object(resnet, "group_norm", rec):
@@ -864,15 +874,21 @@ def phase_group_norm(dev, gpu, profile=False):
     step(batch, tgen)
     torch.cuda.synchronize()
     zero_counts()
-    step(batch, tgen)
-    torch.cuda.synchronize()
+    with composition_calls() as plain:
+        step(batch, tgen)
+        torch.cuda.synchronize()
     train = gn_counts()
-    check(train["gn.onepass"] == train["gn.split"] == 0
-          and train["gn.autograd"] > 0,
-          f"K3 in a train step: {train}, want every call through autograd")
-    print(f"K3 a train step (flagship b2): {train}", flush=True)
+    bwd = train["gn.bwd.onepass"] + train["gn.bwd.split"]
+    check(train["gn.train"] > 0 and bwd == train["gn.train"]
+          and train["gn.onepass"] + train["gn.split"] == train["gn.train"]
+          and not plain,
+          f"K3 in a train step: {train}, {len(plain)} composition calls; "
+          f"want every call on the kernels, forward and backward")
+    print(f"K3 a train step (flagship b2): {train}, composition calls 0",
+          flush=True)
     del model, step, batch
     torch.cuda.empty_cache()
+    phase_k3_train(dev, gpu, gen)
     big = max(uniq, key=lambda c: math.prod(c[0]))
     return dict(
         recs[big], name="group_norm", source="fgn_torch/csrc/group_norm.cu",
@@ -882,6 +898,220 @@ def phase_group_norm(dev, gpu, profile=False):
         launches=launches, route="cuda", bound_by="bytes",
         launches_main_paths={"omniiseg_b8": launches, "omniiseg_b1": b1,
                              "coco2voc_b4": c2v, "train_step": train})
+
+
+@contextlib.contextmanager
+def composition_calls():
+    """The calls to K3's plain composition inside the block, listed by
+    device (the module's ``group_norm_plain``, patched to count)."""
+    import fgn_torch.ops.group_norm_cuda as gnc
+
+    seen, plain = [], gnc.group_norm_plain
+
+    def rec(x, *a, **k):
+        seen.append(str(x.device))
+        return plain(x, *a, **k)
+
+    with mock.patch.object(gnc, "group_norm_plain", rec):
+        yield seen
+
+
+# K3-bwd's holds: the composition's gradients on the same inputs, dy and
+# ReLU mask (the kernels' forward output's: the two forwards round a few
+# elements one bf16 ulp apart, and where such an element's sum with the
+# residual falls on 0 in one of them the masks differ, at most GN_MASK_SHARE
+# of the elements), i.e. dres = dz and autograd through F.group_norm in f32
+# from dz, cast to x's dtype. dx is rounded once in both from f32 values
+# summed in other orders, so an element may round the other way: within
+# 2^-7 (|want| + |got|) (about two bf16 ulp; f32: 1e-5) + 1e-5 of the
+# largest |want|. dres must be equal. dweight and dbias are f32 sums over
+# N·H·W terms a channel in other orders: within GN_PARAM_TOL of the
+# channel's sum of |terms| (f32 sums of n terms in two orders differ by
+# about sqrt(n)·2^-24 of it, 2.3e-5 at the relation head's 150,528 terms).
+GN_PARAM_TOL = 1e-4
+GN_MASK_SHARE = 1e-5
+
+
+def k3_bwd_hold(tag, got, want, x, dz, G, needs):
+    """K3-bwd's gradients ``got`` against the composition's ``want`` (both
+    in the order of (x, weight, bias, residual) that ``needs`` keeps), dz
+    the masked gradient both were given. → the worst of each held gradient
+    as a share of its tolerance (dres: the share of elements that
+    differ)."""
+    import torch
+    import torch.nn.functional as F
+
+    names = [n for n, k in zip(("dx", "dweight", "dbias", "dres"),
+                               (needs[0], needs[1], needs[1], needs[2])) if k]
+    worst = {}
+    for name, g, w in zip(names, got, want):
+        if name == "dres":
+            worst[name] = float((g != w).float().mean())
+            check(worst[name] == 0, f"K3-bwd {tag}: dres differs at "
+                                    f"{worst[name]:.2e} of the elements")
+            continue
+        if name == "dx":
+            gf, wf = g.float(), w.float()
+            rel = 2.0 ** -7 if x.dtype == torch.bfloat16 else 1e-5
+            tol = rel * (wf.abs() + gf.abs()) + 1e-5 * float(wf.abs().max())
+        else:
+            terms = dz.double().abs()
+            if name == "dweight":
+                terms = terms * F.group_norm(x.double(), G).abs()
+            tol = GN_PARAM_TOL * terms.sum((0, 2, 3)).float() + 1e-30
+            gf, wf = g, w
+        ratio = float(((gf - wf).abs() / tol).max())
+        check(ratio <= 1, f"K3-bwd {tag}: {name} off by {ratio:.3g} of its "
+                          f"tolerance")
+        worst[name] = ratio
+    return worst
+
+
+def k3_bwd_record(gen, call, dev, timed=True):
+    """K3 forward and K3-bwd at one train-step call (shape, dtype, groups,
+    residual, ReLU, which of x, weight, residual require grad): the routes
+    it lands on, the forward's output equal to the serving kernel's, two
+    calls bit for bit, held against the composition's gradients
+    (``k3_bwd_hold``), and forward + backward timed on the card
+    (``device_ms``) beside the composition's (``group_norm_plain`` under
+    autograd) and the byte bound (forward: x and the residual read, out
+    written; backward: x, dy and (ReLU) out read, dx and (residual) dres
+    written; 3.35 TB/s). → its record."""
+    import torch
+    import torch.nn.functional as F
+
+    from fgn_torch.ops.group_norm_cuda import (
+        _launch, _launch_bwd, _plan, _plan_bwd, _sm_count, group_norm,
+        group_norm_plain,
+    )
+
+    shape, dtype, G, with_res, relu, needs = call
+    N, C, H, W = shape
+    x, res, w, b = k3_inputs(gen, shape, dtype, with_res, dev)
+    dy = k3_inputs(gen, shape, dtype, False, dev)[0]
+    x = x.detach().requires_grad_(needs[0])
+    w.requires_grad_(needs[1])
+    b.requires_grad_(needs[1])
+    if res is not None:
+        res = res.detach().requires_grad_(needs[2])
+    leaves = [t for t in (x, w, b, res) if t is not None and t.requires_grad]
+    e, sms = x.element_size(), _sm_count(dev.index or 0)
+    fwd = _plan(N, H * W, C, G, e, sms).route
+    bwd = _plan_bwd(N, H * W, C, G, e, sms).route
+
+    def run(fn):
+        out = fn(x, G, w, b, GN_EPS, dtype, res, relu)
+        return (out, *torch.autograd.grad(out, leaves, dy))
+
+    (out, *got), moved = moved_by(run, GN_COUNTERS, group_norm)
+    want_moved = tuple(int(k in ("gn." + fwd, "gn.train", "gn.bwd." + bwd))
+                       for k in GN_COUNTERS)
+    check(moved == want_moved, f"K3-bwd {shape}: moved {moved}, want the "
+                               f"{fwd} forward and {bwd} backward")
+    _, *again = run(group_norm)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, c) for a, c in zip(got, again)),
+          f"K3-bwd {shape}: two calls differ")
+    del again
+    tag = (f"{tuple(shape)} {str(dtype)[6:]} "
+           f"{'res+' if with_res else ''}{'relu' if relu else 'none'}"
+           f"{'' if all(needs[:2]) else ' needs ' + str(needs)}")
+    with torch.no_grad():
+        check(torch.equal(out, group_norm(x, G, w, b, GN_EPS, dtype, res,
+                                          relu)),
+              f"K3-bwd {tag}: the training forward's output differs from "
+              f"the serving kernel's")
+        out_c = group_norm_plain(x, G, w, b, GN_EPS, dtype, res, relu)
+        flips = float(((out > 0) != (out_c > 0)).float().mean())
+        check(flips <= GN_MASK_SHARE, f"K3-bwd {tag}: ReLU masks differ at "
+                                      f"{flips:.2e} of the elements")
+        dz = torch.where(out <= 0, 0, dy) if relu else dy
+        del out_c
+    xf, wf, bf = (t.detach().float().requires_grad_(t.requires_grad)
+                  for t in (x, w, b))
+    ref = [t for t in (xf, wf, bf) if t.requires_grad]
+    want = list(torch.autograd.grad(F.group_norm(xf, G, wf, bf, GN_EPS),
+                                    ref, dz.float())) if ref else []
+    if needs[0]:
+        want[0] = want[0].to(dtype)
+    if with_res and needs[2]:
+        want.append(dz)
+    worst = k3_bwd_hold(tag, got, want, x.detach(), dz, G, needs)
+    del want, ref, xf
+    rec = dict(shape=tuple(shape), dtype=str(dtype)[6:], residual=with_res,
+               relu=relu, route=fwd, bwd_route=bwd, worst=worst,
+               mask_flips=flips)
+    line = (f"K3-bwd {tag}: {fwd} / {bwd}, mask flips {flips:.1e}, worst "
+            "share of tolerance "
+            + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    if timed:
+        size = x.numel() * x.element_size()
+        nbytes = size * (3 + relu + with_res) + 6 * C * 4
+        rec["bound_ms"] = (nbytes + size * (2 + with_res)) / HBM_BYTES_S * 1e3
+        rec["bwd_bound_ms"] = nbytes / HBM_BYTES_S * 1e3
+        rec["ms"] = device_ms(lambda: run(group_norm))
+        rec["plain_ms"] = device_ms(lambda: run(group_norm_plain))
+        with torch.no_grad():
+            stats = torch.empty((N, G, 2), dtype=torch.float32, device=dev)
+            y = _launch(x, G, w, b, GN_EPS, dtype, res, relu, stats=stats)
+            grads = needs[:2] + needs[1:]
+            rec["bwd_ms"] = device_ms(lambda: _launch_bwd(
+                x, y if relu else None, dy, stats, w, G, grads))
+        wl, bl = (t.detach().to(dtype).requires_grad_(t.requires_grad)
+                  for t in (w, b))
+        lib = [t for t in (x, wl, bl) if t.requires_grad]
+        rec["library_ms"] = device_ms(lambda: torch.autograd.grad(
+            F.group_norm(x, G, wl, bl, GN_EPS), lib, dy))
+        line += (f"; forward + backward {rec['ms']:.4f} ms, bound "
+                 f"{rec['bound_ms']:.4f} ms (bytes; "
+                 f"{100 * rec['bound_ms'] / rec['ms']:.1f} % of it), "
+                 f"composition {rec['plain_ms']:.4f} ms, library "
+                 f"F.group_norm {rec['library_ms']:.4f} ms; backward alone "
+                 f"{rec['bwd_ms']:.4f} ms, bound {rec['bwd_bound_ms']:.4f} ms "
+                 f"({100 * rec['bwd_bound_ms'] / rec['bwd_ms']:.1f} %)")
+    print(line, flush=True)
+    return rec
+
+
+def phase_k3_train(dev, gpu, gen):
+    """K3 and K3-bwd at every GroupNorm call of one b8 train step of
+    ``omniiseg-n3k3-480`` (the cell ``omniiseg-train-b8``'s model and
+    batch), held and timed (``k3_bwd_record``), and at f32 twins of both
+    backward routes and with frozen weights or a frozen input, held; the
+    step's totals printed."""
+    import torch
+
+    model, _, step, batch, tgen = make_train(
+        8, dev, bench_cfg("omniiseg-n3k3-480"))
+    calls = capture_gn_calls(lambda: step(batch, tgen), grads=True)
+    del model, step, batch
+    torch.cuda.empty_cache()
+    uniq = list(dict.fromkeys(calls))
+    recs = {c: k3_bwd_record(gen, c, dev) for c in uniq}
+    for shape in ((16, 512, 7, 7), (16, 1024, 7, 7), (2, 32, 240, 240)):
+        for with_res, relu in ((False, False), (True, True)):
+            k3_bwd_record(gen, (shape, torch.float32, 32, with_res, relu,
+                                (True, True, with_res)), dev, timed=False)
+    for needs in ((True, False, True), (False, True, True)):
+        for shape in ((64, 1024, 7, 7), (8, 256, 120, 120)):
+            k3_bwd_record(gen, (shape, torch.bfloat16, 32, True, True, needs),
+                          dev, timed=False)
+    tot = {k: sum(recs[c][k] for c in calls)
+           for k in ("ms", "bound_ms", "plain_ms", "library_ms", "bwd_ms",
+                     "bwd_bound_ms")}
+    by_route = {r: sum(recs[c]["bwd_ms"] for c in calls
+                       if recs[c]["bwd_route"] == r)
+                for r in ("onepass", "split")}
+    print(f"K3 + K3-bwd a b8 train step ({len(calls)} calls, "
+          f"{len(uniq)} distinct): forward + backward {tot['ms']:.3f} ms, "
+          f"bound {tot['bound_ms']:.3f} ms "
+          f"({100 * tot['bound_ms'] / tot['ms']:.1f} %), composition "
+          f"{tot['plain_ms']:.3f} ms, library F.group_norm "
+          f"{tot['library_ms']:.3f} ms; backward alone {tot['bwd_ms']:.3f} ms "
+          f"(onepass {by_route['onepass']:.3f}, split "
+          f"{by_route['split']:.3f}), bound {tot['bwd_bound_ms']:.3f} ms "
+          f"({100 * tot['bwd_bound_ms'] / tot['bwd_ms']:.1f} %); on {gpu}",
+          flush=True)
 
 
 # K4: the ViT's attention with decomposed relative positions
@@ -1074,11 +1304,12 @@ def flagship_cfg(**kw):
     return FGNConfig(**{**FLAGSHIP_CFG, **kw})
 
 
-def make_train(nb, dev):
-    """The flagship's trainer: ``make_train_step`` (train_forward, backward,
-    Adam at ``make_lr_schedule(5e-3, steps_per_epoch=1000)``), seeded random
-    weights, 480 px N3K3 episodes at batch ``nb``, the ROI sample's
-    generator seeded with 2. → (model, optimizer, step, batch, generator)."""
+def make_train(nb, dev, cfg=None):
+    """The flagship's trainer (or ``cfg``'s): ``make_train_step``
+    (train_forward, backward, Adam at ``make_lr_schedule(5e-3,
+    steps_per_epoch=1000)``), seeded random weights, 480 px N3K3 episodes at
+    batch ``nb``, the ROI sample's generator seeded with 2. → (model,
+    optimizer, step, batch, generator)."""
     import torch
 
     from fgn_torch.data.batching import to_device, toy_batch
@@ -1086,7 +1317,7 @@ def make_train(nb, dev):
     from fgn_torch.train.optim import build_optimizer, make_lr_schedule
     from fgn_torch.train.train_step import make_train_step
 
-    model = build_model(flagship_cfg(), dev, seed=0)
+    model = build_model(cfg or flagship_cfg(), dev, seed=0)
     opt = build_optimizer(model, optimizer="adam",
                           schedule=make_lr_schedule(5e-3,
                                                     steps_per_epoch=1000))

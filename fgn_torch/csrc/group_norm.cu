@@ -1,5 +1,5 @@
 // GroupNorm with its epilogue (K3), on channels_last maps, for Hopper
-// (sm_90a).
+// (sm_90a), and its gradient (K3-bwd, further down).
 //
 // Replaces no Pallas kernel of the JAX package: on the TPU, XLA fuses flax's
 // nn.GroupNorm (fgn_tpu/models/resnet.py) with the casts, the ReLU and the
@@ -40,6 +40,10 @@
 // mean)^2) and normalises its range of rows, read again from device memory:
 // the second read is this route's extra cost (a map within the 50 MB L2 may
 // hit it).
+//
+// Training instantiates both routes with kStats: the onepass kernel, and the
+// apply kernel's first block of an instance, also write each (instance,
+// group)'s f32 (mean, rstd) for K3-bwd. Serving instantiates them without.
 //
 // Statistics of a tile (tile_stats): each thread owns one 16-byte chunk of
 // the row (V = 8 bf16 or 4 f32 channels) and the rows r, r + RT, ...; it sums
@@ -344,12 +348,14 @@ __device__ __forceinline__ void normalize_rows(
   }
 }
 
-// One block an instance, resident in shared memory. Grid (N).
-template <typename T, bool kRes>
+// One block an instance, resident in shared memory. Grid (N). With kStats
+// (training) it also writes each group's (mean, rstd) to stats (N, G, 2).
+template <typename T, bool kRes, bool kStats>
 __global__ void __launch_bounds__(kMaxThreads, 2)
     gn_onepass(const T* __restrict__ x, const float* __restrict__ gamma,
                const float* __restrict__ beta, const T* __restrict__ res,
-               T* __restrict__ out, int HW, Layout L, float eps, int relu) {
+               T* __restrict__ out, float* __restrict__ stats, int HW,
+               Layout L, float eps, int relu) {
   constexpr int V = Vec16<T>::kN;
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t nvec = (size_t)HW * L.NC;
@@ -363,6 +369,11 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
   const float cnt = (float)HW * (float)L.Cg;
   for (int g = threadIdx.x; g < L.G; g += L.T) {
     grstd[g] = 1.f / sqrtf(grstd[g] / cnt + eps);
+    if (kStats) {
+      float* s = stats + ((size_t)blockIdx.x * L.G + g) * 2;
+      s[0] = gmean[g];
+      s[1] = grstd[g];
+    }
   }
   __syncthreads();
   if (threadIdx.x >= L.RT * L.NC) return;
@@ -402,13 +413,15 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
 }
 
 // Merges an instance's partials, then normalises apply_rows rows of it.
-// Grid (ceil(HW / apply_rows), N).
-template <typename T, bool kRes>
+// Grid (ceil(HW / apply_rows), N). With kStats the first block of an
+// instance writes its groups' (mean, rstd) to stats (N, G, 2).
+template <typename T, bool kRes, bool kStats>
 __global__ void __launch_bounds__(kMaxThreads, 2)
     gn_apply(const T* __restrict__ x, const float* __restrict__ part,
              const float* __restrict__ gamma, const float* __restrict__ beta,
-             const T* __restrict__ res, T* __restrict__ out, int HW, Layout L,
-             float eps, int relu, int tile_rows, int tiles, int apply_rows) {
+             const T* __restrict__ res, T* __restrict__ out,
+             float* __restrict__ stats, int HW, Layout L, float eps, int relu,
+             int tile_rows, int tiles, int apply_rows) {
   constexpr int V = Vec16<T>::kN;
   extern __shared__ float gsm[];  // gmean[G], grstd[G]
   float* gmean = gsm;
@@ -434,6 +447,11 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
     if (lane == 0) {
       gmean[g] = mean;
       grstd[g] = 1.f / sqrtf(m2 / ((float)HW * (float)L.Cg) + eps);
+      if (kStats && blockIdx.x == 0) {
+        float* s = stats + ((size_t)n * L.G + g) * 2;
+        s[0] = mean;
+        s[1] = grstd[g];
+      }
     }
   }
   __syncthreads();
@@ -448,6 +466,390 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
       reinterpret_cast<const unsigned char*>(res) + (kRes ? base : 0),
       reinterpret_cast<unsigned char*>(out) + base, p0, p1, L, ch, r, a, c,
       relu);
+}
+
+
+// ---------------------------------------------------------------------------
+// K3-bwd: the gradient of the training forward above (kStats), on the same
+// channels_last layout. With y = act(cast(x_hat * gamma + beta) [+ res]),
+// x_hat = (x - mean) * rstd of each (instance, group) of M = H * W * Cg
+// values, and dy the gradient of y:
+//
+//   dz     = dy where y > 0, else 0 (with the ReLU; as torch's
+//            threshold_backward, a NaN y passes dy), dy without it;
+//   dres   = dz, written as is where the residual wants a gradient;
+//   dx     = rstd * (gamma * dz - mean(gamma * dz) - x_hat *
+//            mean(gamma * dz * x_hat)), the means over the group, f32,
+//            rounded once to x's dtype;
+//   dgamma = sum dz * x_hat, dbeta = sum dz over instances and rows, f32.
+//
+// Bound: bytes. x, dy and y read once, dx and dres written once: 10 bytes an
+// element in bf16. Every sum runs in a fixed order and no float is added
+// atomically, so a launch repeats its bits.
+//
+// Route "onepass" (gnb_onepass): an instance's x and dy fit in shared memory
+// (res5's and the relation head's 7x7 RoI maps, and the supports' smaller
+// maps). A block walks the instances blockIdx.x, + gridDim.x, ...: it copies
+// x and dy in with cp.async, reads y once from device memory while it forms
+// dz (kept in place of dy, and written to dres), sums dz and dz * x_hat per
+// channel, then writes dx from shared memory. Its channel sums over its
+// instances, in order, are one row of rows (grid, C, 2), which gnb_params
+// adds up for dgamma and dbeta.
+//
+// Route "split" (gnb_sums, gnb_merge, gnb_apply): the backbone's larger maps.
+// gnb_sums takes a tile of rows of an instance from device memory (dz
+// written to dres) and writes its channel sums to part (N, tiles, C, 2);
+// gnb_merge adds an instance's tiles (rows (N, C, 2)) and forms its groups'
+// two means; gnb_apply reads x and dz again (dres where it was written, else
+// dy and y) and writes dx. The second read is this route's extra cost.
+//
+// A thread owns one 16-byte chunk of a row and the rows r, r + RT, ..., as in
+// the forward (tile_stats); its per-channel sums meet the other rows' in
+// shared memory (channel_sums).
+
+// dz of 16 bytes of dy, y: dy where y is not <= 0, else 0 (exact in T).
+template <typename T>
+__device__ __forceinline__ uint4 relu_grad(const uint4 dv, const uint4 yv) {
+  constexpr int V = Vec16<T>::kN;
+  float d[V], y[V];
+  Vec16<T>::unpack(dv, d);
+  Vec16<T>::unpack(yv, y);
+#pragma unroll
+  for (int i = 0; i < V; ++i) d[i] = y[i] <= 0.f ? 0.f : d[i];
+  return Vec16<T>::pack(d);
+}
+
+// The mean and rstd of the group of each channel of chunk ch of instance n;
+// stats (N, G, 2).
+template <int V>
+__device__ __forceinline__ void chunk_stats(const Layout& L, int n, int ch,
+                                            const float* stats, float* mu,
+                                            float* rs) {
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const float* s = stats + ((size_t)n * L.G + (ch * V + i) / L.Cg) * 2;
+    mu[i] = s[0];
+    rs[i] = s[1];
+  }
+}
+
+// Rows [p0, p1) of an instance, this thread's chunk ch from row p0 + r on:
+// dz from ds (masked by ys where ys is not null, and then written back to zs
+// where zs is not null), written to dres where it is not null; az, azx gain
+// each channel's dz and dz * x_hat. Two rows of loads in flight.
+template <typename T>
+__device__ __forceinline__ void grad_sums(
+    const unsigned char* xs, const unsigned char* ds, const unsigned char* ys,
+    unsigned char* zs, unsigned char* dres, int p0, int p1, const Layout& L,
+    int ch, int r, const float* mu, const float* rs, float* az, float* azx) {
+  constexpr int V = Vec16<T>::kN;
+  constexpr int kUnroll = 2;
+  for (int p = p0 + r; p < p1; p += kUnroll * L.RT) {
+    uint4 xv[kUnroll], dv[kUnroll], yv[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int q = p + u * L.RT;
+      if (q < p1) {
+        const size_t off = ((size_t)q * L.NC + ch) * 16;
+        xv[u] = *reinterpret_cast<const uint4*>(xs + off);
+        dv[u] = *reinterpret_cast<const uint4*>(ds + off);
+        if (ys) yv[u] = *reinterpret_cast<const uint4*>(ys + off);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int q = p + u * L.RT;
+      if (q < p1) {
+        const size_t off = ((size_t)q * L.NC + ch) * 16;
+        if (ys) {
+          dv[u] = relu_grad<T>(dv[u], yv[u]);
+          if (zs) *reinterpret_cast<uint4*>(zs + off) = dv[u];
+        }
+        if (dres) *reinterpret_cast<uint4*>(dres + off) = dv[u];
+        float xf[V], zf[V];
+        Vec16<T>::unpack(xv[u], xf);
+        Vec16<T>::unpack(dv[u], zf);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          az[i] += zf[i];
+          azx[i] = fmaf(zf[i], (xf[i] - mu[i]) * rs[i], azx[i]);
+        }
+      }
+    }
+  }
+}
+
+// out[c * stride] = the sum of the block's threads' acc for channel c, over
+// the RT rows of a pass in order. slots holds RT * C floats.
+template <int V>
+__device__ __forceinline__ void channel_sums(const float* acc, const Layout& L,
+                                             int ch, int r, bool active,
+                                             float* slots, float* out,
+                                             int stride) {
+  if (active) {
+    float4* dst = reinterpret_cast<float4*>(slots + (size_t)r * L.C + ch * V);
+#pragma unroll
+    for (int q = 0; q < V / 4; ++q) {
+      dst[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2],
+                           acc[4 * q + 3]);
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < L.C; c += L.T) {
+    float s = 0.f;
+    for (int k = 0; k < L.RT; ++k) s += slots[(size_t)k * L.C + c];
+    out[(size_t)c * stride] = s;
+  }
+  __syncthreads();
+}
+
+// gab[2g], gab[2g + 1] = the means over group g of gamma * dz and gamma * dz
+// * x_hat, from the channel sums cz, czx (stride 2 apart): one warp a group,
+// its lanes over the group's channels. Ends with gab visible to the block.
+__device__ __forceinline__ void group_means(const Layout& L, const float* cz,
+                                            const float* czx,
+                                            const float* gamma, float M,
+                                            float* gab) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int g = warp; g < L.G; g += L.T >> 5) {
+    float a = 0.f, b = 0.f;
+    for (int k = lane; k < L.Cg; k += 32) {
+      const int c = g * L.Cg + k;
+      a = fmaf(gamma[c], cz[2 * c], a);
+      b = fmaf(gamma[c], czx[2 * c], b);
+    }
+    a = warp_sum(a);
+    b = warp_sum(b);
+    if (lane == 0) {
+      gab[2 * g] = a / M;
+      gab[2 * g + 1] = b / M;
+    }
+  }
+  __syncthreads();
+}
+
+// dx of rows [p0, p1), this thread's chunk: dz from zs (masked by ys where
+// ys is not null), x from xs; dx = c1 * dz + c2 * x + c3, rounded once.
+template <typename T>
+__device__ __forceinline__ void grad_x(const unsigned char* xs,
+                                       const unsigned char* zs,
+                                       const unsigned char* ys,
+                                       unsigned char* dxs, int p0, int p1,
+                                       const Layout& L, int ch, int r,
+                                       const float* c1, const float* c2,
+                                       const float* c3) {
+  constexpr int V = Vec16<T>::kN;
+  constexpr int kUnroll = 2;
+  for (int p = p0 + r; p < p1; p += kUnroll * L.RT) {
+    uint4 xv[kUnroll], zv[kUnroll], yv[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int q = p + u * L.RT;
+      if (q < p1) {
+        const size_t off = ((size_t)q * L.NC + ch) * 16;
+        xv[u] = *reinterpret_cast<const uint4*>(xs + off);
+        zv[u] = *reinterpret_cast<const uint4*>(zs + off);
+        if (ys) yv[u] = *reinterpret_cast<const uint4*>(ys + off);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int q = p + u * L.RT;
+      if (q < p1) {
+        if (ys) zv[u] = relu_grad<T>(zv[u], yv[u]);
+        float xf[V], zf[V];
+        Vec16<T>::unpack(xv[u], xf);
+        Vec16<T>::unpack(zv[u], zf);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          xf[i] = Vec16<T>::round(fmaf(c1[i], zf[i], fmaf(c2[i], xf[i], c3[i])));
+        }
+        *reinterpret_cast<uint4*>(dxs + ((size_t)q * L.NC + ch) * 16) =
+            Vec16<T>::pack(xf);
+      }
+    }
+  }
+}
+
+// dx's per-channel coefficients of chunk ch, as the library's backward
+// forms them: with a = mean(gamma * dz), b = mean(gamma * dz * x_hat) (gab
+// as group_means leaves it), dx = rstd * (gamma * dz - a - x_hat * b) =
+// c1 * dz + c2 * x + c3, c1 = rstd * gamma, c2 = -rstd^2 * b, c3 = -c2 *
+// mean - rstd * a. mu, rs: the chunk's means and rstds, replaced by c2, c3.
+template <int V>
+__device__ __forceinline__ void dx_coeffs(const Layout& L, int ch,
+                                          const float* gamma, const float* gab,
+                                          float* mu, float* rs, float* c1) {
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int c = ch * V + i, g = c / L.Cg;
+    const float c2 = -rs[i] * rs[i] * gab[2 * g + 1];
+    c1[i] = rs[i] * gamma[c];
+    rs[i] = fmaf(-c2, mu[i], -rs[i] * gab[2 * g]);
+    mu[i] = c2;
+  }
+}
+
+// One block walks instances blockIdx.x, + gridDim.x, ...; x and dz resident
+// in shared memory. rows (gridDim.x, C, 2): the block's sum over its
+// instances of each channel's (dz, dz * x_hat). dx, dres, y may be null.
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    gnb_onepass(const T* __restrict__ x, const T* __restrict__ dy,
+                const T* __restrict__ y, const float* __restrict__ gamma,
+                const float* __restrict__ stats, T* __restrict__ dx,
+                T* __restrict__ dres, float* __restrict__ rows, int N, int HW,
+                Layout L) {
+  constexpr int V = Vec16<T>::kN;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const size_t nvec = (size_t)HW * L.NC;
+  unsigned char* xt = smem;
+  unsigned char* zt = smem + nvec * 16;
+  float* slots = reinterpret_cast<float*>(smem + 2 * nvec * 16);
+  float* cs = slots + L.T * V;  // (C, 2): a channel's (dz, dz * x_hat)
+  float* gab = cs + 2 * L.C;    // (G, 2)
+  const bool active = threadIdx.x < L.RT * L.NC;
+  const int ch = threadIdx.x % L.NC, r = threadIdx.x / L.NC;
+  const float M = (float)HW * (float)L.Cg;
+  float* mine = rows + (size_t)blockIdx.x * L.C * 2;
+  for (int n = blockIdx.x; n < N; n += gridDim.x) {
+    const size_t base = (size_t)n * nvec * 16;  // bytes
+    const unsigned char* xb = reinterpret_cast<const unsigned char*>(x) + base;
+    const unsigned char* db = reinterpret_cast<const unsigned char*>(dy) + base;
+    for (size_t k = threadIdx.x; k < nvec; k += blockDim.x) {
+      cp_async16(xt + k * 16, xb + k * 16);
+      cp_async16(zt + k * 16, db + k * 16);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    float mu[V], rs[V], az[V], azx[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) az[i] = azx[i] = 0.f;
+    if (active) {
+      chunk_stats<V>(L, n, ch, stats, mu, rs);
+      grad_sums<T>(xt, zt,
+                   y ? reinterpret_cast<const unsigned char*>(y) + base
+                     : nullptr,
+                   zt,
+                   dres ? reinterpret_cast<unsigned char*>(dres) + base
+                        : nullptr,
+                   0, HW, L, ch, r, mu, rs, az, azx);
+    }
+    channel_sums<V>(az, L, ch, r, active, slots, cs, 2);
+    channel_sums<V>(azx, L, ch, r, active, slots, cs + 1, 2);
+    const bool first = n == (int)blockIdx.x;
+    for (int c = threadIdx.x; c < L.C; c += L.T) {
+      mine[2 * c] = first ? cs[2 * c] : mine[2 * c] + cs[2 * c];
+      mine[2 * c + 1] = first ? cs[2 * c + 1] : mine[2 * c + 1] + cs[2 * c + 1];
+    }
+    if (dx) {
+      group_means(L, cs, cs + 1, gamma, M, gab);
+      if (active) {
+        float c1[V];
+        dx_coeffs<V>(L, ch, gamma, gab, mu, rs, c1);
+        grad_x<T>(xt, zt, nullptr,
+                  reinterpret_cast<unsigned char*>(dx) + base, 0, HW, L, ch,
+                  r, c1, mu, rs);
+      }
+    }
+    __syncthreads();  // the next instance's copies overwrite the tiles
+  }
+}
+
+// The channel sums of a tile of tile_rows rows. Grid (tiles, N); part
+// (N, tiles, C, 2). dres, y may be null.
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+    gnb_sums(const T* __restrict__ x, const T* __restrict__ dy,
+             const T* __restrict__ y, const float* __restrict__ stats,
+             T* __restrict__ dres, float* __restrict__ part, int HW, Layout L,
+             int tile_rows) {
+  constexpr int V = Vec16<T>::kN;
+  extern __shared__ float slots[];
+  const int t = blockIdx.x, n = blockIdx.y, tiles = gridDim.x;
+  const int p0 = t * tile_rows, p1 = min(HW, p0 + tile_rows);
+  const bool active = threadIdx.x < L.RT * L.NC;
+  const int ch = threadIdx.x % L.NC, r = threadIdx.x / L.NC;
+  const size_t base = (size_t)n * HW * L.NC * 16;  // bytes
+  float mu[V], rs[V], az[V], azx[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) az[i] = azx[i] = 0.f;
+  if (active) {
+    chunk_stats<V>(L, n, ch, stats, mu, rs);
+    grad_sums<T>(
+        reinterpret_cast<const unsigned char*>(x) + base,
+        reinterpret_cast<const unsigned char*>(dy) + base,
+        y ? reinterpret_cast<const unsigned char*>(y) + base : nullptr,
+        nullptr, dres ? reinterpret_cast<unsigned char*>(dres) + base : nullptr,
+        p0, p1, L, ch, r, mu, rs, az, azx);
+  }
+  float* out = part + ((size_t)n * tiles + t) * L.C * 2;
+  channel_sums<V>(az, L, ch, r, active, slots, out, 2);
+  channel_sums<V>(azx, L, ch, r, active, slots, out + 1, 2);
+}
+
+// An instance's tiles added in order: rows (N, C, 2), and its groups' means
+// gsum (N, G, 2). Grid (N).
+__global__ void __launch_bounds__(kMaxThreads, 2)
+    gnb_merge(const float* __restrict__ part, const float* __restrict__ gamma,
+              float* __restrict__ rows, float* __restrict__ gsum, int tiles,
+              Layout L, float M) {
+  const int n = blockIdx.x;
+  const float* pn = part + (size_t)n * tiles * L.C * 2;
+  float* cs = rows + (size_t)n * L.C * 2;
+  for (int c = threadIdx.x; c < L.C; c += L.T) {
+    float z = 0.f, zx = 0.f;
+    for (int t = 0; t < tiles; ++t) {
+      const float2 v =
+          reinterpret_cast<const float2*>(pn + (size_t)t * L.C * 2)[c];
+      z += v.x;
+      zx += v.y;
+    }
+    cs[2 * c] = z;
+    cs[2 * c + 1] = zx;
+  }
+  __syncthreads();
+  group_means(L, cs, cs + 1, gamma, M, gsum + (size_t)n * L.G * 2);
+}
+
+// dx of a tile of tile_rows rows. Grid (tiles, N). z is dres where it was
+// written (y null), else dy and y (null without the ReLU).
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+    gnb_apply(const T* __restrict__ x, const T* __restrict__ z,
+              const T* __restrict__ y, const float* __restrict__ gamma,
+              const float* __restrict__ stats, const float* __restrict__ gsum,
+              T* __restrict__ dx, int HW, Layout L, int tile_rows) {
+  constexpr int V = Vec16<T>::kN;
+  if (threadIdx.x >= L.RT * L.NC) return;
+  const int n = blockIdx.y;
+  const int p0 = blockIdx.x * tile_rows, p1 = min(HW, p0 + tile_rows);
+  const int ch = threadIdx.x % L.NC, r = threadIdx.x / L.NC;
+  const size_t base = (size_t)n * HW * L.NC * 16;  // bytes
+  float mu[V], rs[V], c1[V];
+  chunk_stats<V>(L, n, ch, stats, mu, rs);
+  dx_coeffs<V>(L, ch, gamma, gsum + (size_t)n * L.G * 2, mu, rs, c1);
+  grad_x<T>(reinterpret_cast<const unsigned char*>(x) + base,
+            reinterpret_cast<const unsigned char*>(z) + base,
+            y ? reinterpret_cast<const unsigned char*>(y) + base : nullptr,
+            reinterpret_cast<unsigned char*>(dx) + base, p0, p1, L, ch, r, c1,
+            mu, rs);
+}
+
+// dbeta[c], dgamma[c] = the sums over R rows of rows[r][c], in order.
+__global__ void gnb_params(const float* __restrict__ rows, int R, int C,
+                           float* __restrict__ dgamma,
+                           float* __restrict__ dbeta) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  float z = 0.f, zx = 0.f;
+  for (int k = 0; k < R; ++k) {
+    const float2 v = reinterpret_cast<const float2*>(rows + (size_t)k * C * 2)[c];
+    z += v.x;
+    zx += v.y;
+  }
+  dbeta[c] = z;
+  dgamma[c] = zx;
 }
 
 // A kernel's shared-memory limit, set once per device and kernel (a host
@@ -468,71 +870,154 @@ cudaError_t allow_smem(K kernel, bool* ready) {
   return cudaSuccess;
 }
 
-template <typename T, bool kRes>
-cudaError_t launch_onepass(const void* x, const void* gamma, const void* beta,
-                           const void* res, void* out, int N, int HW,
-                           const Layout& L, float eps, int relu,
+// The forward's arguments (fgn_group_norm's).
+struct FwdArgs {
+  const void* x;
+  const void* gamma;
+  const void* beta;
+  const void* res;
+  void* out;
+  void* part;
+  void* stats;
+  int N, HW;
+  float eps;
+  int relu, tile_rows, apply_rows;
+};
+
+template <typename T, bool kRes, bool kStats>
+cudaError_t launch_onepass(const FwdArgs& a, const Layout& L,
                            cudaStream_t st) {
-  const size_t smem = (size_t)HW * L.NC * 16 + stats_smem(L);
+  const size_t smem = (size_t)a.HW * L.NC * 16 + stats_smem(L);
   if (smem > (size_t)kSmemMax) return cudaErrorInvalidValue;
-  auto kernel = gn_onepass<T, kRes>;
+  auto kernel = gn_onepass<T, kRes, kStats>;
   static bool ready[kMaxDevices] = {};
   const cudaError_t err = allow_smem(kernel, ready);
   if (err != cudaSuccess) return err;
-  kernel<<<N, L.T, smem, st>>>(
-      static_cast<const T*>(x), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<const T*>(res),
-      static_cast<T*>(out), HW, L, eps, relu);
+  kernel<<<a.N, L.T, smem, st>>>(
+      static_cast<const T*>(a.x), static_cast<const float*>(a.gamma),
+      static_cast<const float*>(a.beta), static_cast<const T*>(a.res),
+      static_cast<T*>(a.out), static_cast<float*>(a.stats), a.HW, L, a.eps,
+      a.relu);
   return cudaGetLastError();
 }
 
-template <typename T, bool kRes>
-cudaError_t launch_split(const void* x, const void* gamma, const void* beta,
-                         const void* res, void* out, void* part, int N,
-                         int HW, const Layout& L, float eps, int relu,
-                         int tile_rows, int apply_rows, cudaStream_t st) {
-  if (tile_rows <= 0 || apply_rows <= 0 || N > kMaxGrid) {
+template <typename T, bool kRes, bool kStats>
+cudaError_t launch_split(const FwdArgs& a, const Layout& L, cudaStream_t st) {
+  if (a.tile_rows <= 0 || a.apply_rows <= 0 || a.N > kMaxGrid) {
     return cudaErrorInvalidValue;
   }
-  const size_t smem = (size_t)tile_rows * L.NC * 16 + stats_smem(L);
+  const size_t smem = (size_t)a.tile_rows * L.NC * 16 + stats_smem(L);
   if (smem > (size_t)kSmemMax) return cudaErrorInvalidValue;
-  const int tiles = (HW + tile_rows - 1) / tile_rows;
-  const int blocks = (HW + apply_rows - 1) / apply_rows;
+  const int tiles = (a.HW + a.tile_rows - 1) / a.tile_rows;
+  const int blocks = (a.HW + a.apply_rows - 1) / a.apply_rows;
   auto stats = gn_stats<T>;
   static bool ready[kMaxDevices] = {};
   cudaError_t err = allow_smem(stats, ready);
   if (err != cudaSuccess) return err;
-  stats<<<dim3(tiles, N), L.T, smem, st>>>(
-      static_cast<const T*>(x), static_cast<float*>(part), HW, L, tile_rows);
+  stats<<<dim3(tiles, a.N), L.T, smem, st>>>(
+      static_cast<const T*>(a.x), static_cast<float*>(a.part), a.HW, L,
+      a.tile_rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  gn_apply<T, kRes><<<dim3(blocks, N), L.T, 2 * L.G * sizeof(float), st>>>(
-      static_cast<const T*>(x), static_cast<const float*>(part),
-      static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<const T*>(res), static_cast<T*>(out), HW, L, eps, relu,
-      tile_rows, tiles, apply_rows);
+  gn_apply<T, kRes, kStats>
+      <<<dim3(blocks, a.N), L.T, 2 * L.G * sizeof(float), st>>>(
+          static_cast<const T*>(a.x), static_cast<const float*>(a.part),
+          static_cast<const float*>(a.gamma),
+          static_cast<const float*>(a.beta), static_cast<const T*>(a.res),
+          static_cast<T*>(a.out), static_cast<float*>(a.stats), a.HW, L,
+          a.eps, a.relu, a.tile_rows, tiles, a.apply_rows);
   return cudaGetLastError();
 }
 
+template <typename T, bool kRes, bool kStats>
+cudaError_t launch_forward(const FwdArgs& a, const Layout& L,
+                           cudaStream_t st) {
+  return a.part == nullptr ? launch_onepass<T, kRes, kStats>(a, L, st)
+                           : launch_split<T, kRes, kStats>(a, L, st);
+}
+
 template <typename T>
-cudaError_t dispatch(const void* x, const void* gamma, const void* beta,
-                     const void* res, void* out, void* part, int N, int HW,
-                     int C, int G, float eps, int relu, int threads,
-                     int tile_rows, int apply_rows, cudaStream_t st) {
+cudaError_t dispatch(const FwdArgs& a, int C, int G, int threads,
+                     cudaStream_t st) {
   Layout L;
-  if (N <= 0 || HW <= 0 || !make_layout<T>(C, G, threads, &L)) {
+  if (a.N <= 0 || a.HW <= 0 || !make_layout<T>(C, G, threads, &L)) {
     return cudaErrorInvalidValue;
   }
-  if (part == nullptr) {
-    return res ? launch_onepass<T, true>(x, gamma, beta, res, out, N, HW, L,
-                                         eps, relu, st)
-               : launch_onepass<T, false>(x, gamma, beta, res, out, N, HW, L,
-                                          eps, relu, st);
+  if (a.stats == nullptr) {  // serving
+    return a.res ? launch_forward<T, true, false>(a, L, st)
+                 : launch_forward<T, false, false>(a, L, st);
   }
-  return res ? launch_split<T, true>(x, gamma, beta, res, out, part, N, HW, L,
-                                     eps, relu, tile_rows, apply_rows, st)
-             : launch_split<T, false>(x, gamma, beta, res, out, part, N, HW,
-                                      L, eps, relu, tile_rows, apply_rows, st);
+  return a.res ? launch_forward<T, true, true>(a, L, st)
+               : launch_forward<T, false, true>(a, L, st);
+}
+
+// The backward's arguments (fgn_group_norm_backward's).
+struct BwdArgs {
+  const void* x;
+  const void* dy;
+  const void* y;
+  const float* gamma;
+  const float* stats;
+  void* dx;
+  void* dres;
+  float* dgamma;
+  float* dbeta;
+  float* rows;
+  float* gsum;
+  float* part;
+  int N, HW, grid, tile_rows;
+};
+
+template <typename T>
+cudaError_t backward(const BwdArgs& a, int C, int G, int threads,
+                     cudaStream_t st) {
+  constexpr int V = Vec16<T>::kN;
+  Layout L;
+  if (a.N <= 0 || a.HW <= 0 || !make_layout<T>(C, G, threads, &L)) {
+    return cudaErrorInvalidValue;
+  }
+  const float M = (float)a.HW * (float)L.Cg;
+  const T* x = static_cast<const T*>(a.x);
+  const T* dy = static_cast<const T*>(a.dy);
+  const T* y = static_cast<const T*>(a.y);
+  T* dx = static_cast<T*>(a.dx);
+  T* dres = static_cast<T*>(a.dres);
+  cudaError_t err;
+  int R;
+  if (a.part == nullptr) {
+    const size_t smem = 2 * (size_t)a.HW * L.NC * 16 + L.T * V * 4 +
+                        2 * C * 4 + 2 * G * 4;
+    if (smem > (size_t)kSmemMax || a.grid <= 0) return cudaErrorInvalidValue;
+    R = a.grid < a.N ? a.grid : a.N;
+    auto kernel = gnb_onepass<T>;
+    static bool ready[kMaxDevices] = {};
+    err = allow_smem(kernel, ready);
+    if (err != cudaSuccess) return err;
+    kernel<<<R, L.T, smem, st>>>(x, dy, y, a.gamma, a.stats, dx, dres, a.rows,
+                                 a.N, a.HW, L);
+  } else {
+    if (a.tile_rows <= 0 || a.N > kMaxGrid) return cudaErrorInvalidValue;
+    const int tiles = (a.HW + a.tile_rows - 1) / a.tile_rows;
+    gnb_sums<T><<<dim3(tiles, a.N), L.T, L.T * V * 4, st>>>(
+        x, dy, y, a.stats, dres, a.part, a.HW, L, a.tile_rows);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    gnb_merge<<<a.N, L.T, 0, st>>>(a.part, a.gamma, a.rows, a.gsum, tiles, L,
+                                   M);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    if (dx) {
+      gnb_apply<T><<<dim3(tiles, a.N), L.T, 0, st>>>(
+          x, dres ? dres : dy, dres ? nullptr : y, a.gamma, a.stats, a.gsum,
+          dx, a.HW, L, a.tile_rows);
+    }
+    R = a.N;
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.dgamma == nullptr) return err;
+  gnb_params<<<(C + 255) / 256, 256, 0, st>>>(a.rows, R, C, a.dgamma,
+                                              a.dbeta);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -546,22 +1031,48 @@ extern "C" {
 // (the instance and the statistics' scratch within kSmemMax); otherwise the
 // split route, part (N, G, ceil(HW / tile_rows), 2) float32 scratch, a
 // statistics tile of tile_rows rows, apply_rows rows a block of the apply
-// kernel. dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the
-// launches.
+// kernel. stats null serves; otherwise (training) each (instance, group)'s
+// float32 (mean, rstd) goes to stats (N, G, 2). dtype: 0 = float32,
+// 1 = bfloat16. Returns the cudaError_t of the launches.
 int fgn_group_norm(const void* x, const void* gamma, const void* beta,
-                   const void* res, void* out, void* part, int N, int HW,
-                   int C, int G, float eps, int relu, int dtype, int threads,
-                   int tile_rows, int apply_rows, void* stream) {
+                   const void* res, void* out, void* part, void* stats, int N,
+                   int HW, int C, int G, float eps, int relu, int dtype,
+                   int threads, int tile_rows, int apply_rows, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return (int)dispatch<float>(x, gamma, beta, res, out, part, N, HW, C, G,
-                                eps, relu, threads, tile_rows, apply_rows, st);
+  const FwdArgs a{x, gamma, beta, res, out, part, stats, N, HW, eps, relu,
+                  tile_rows, apply_rows};
+  if (dtype == 0) return (int)dispatch<float>(a, C, G, threads, st);
+  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(a, C, G, threads, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The gradient of fgn_group_norm's training call. x, dy, y, dx, dres:
+// (N, H, W, C) in memory, 16-byte aligned; y (the forward's output) null
+// where the forward had no ReLU; dx, dres null where no gradient is wanted
+// (dres: where the forward's residual wants one); gamma (C,), stats
+// (N, G, 2) as the forward wrote it; dgamma, dbeta (C,) float32, both null
+// where neither is wanted. part null takes the onepass route: `grid` blocks
+// (at most N; 2 * HW * C values and the scratch within kSmemMax), rows
+// (grid, C, 2) float32 scratch. Otherwise the split route: tiles of
+// tile_rows rows, part (N, ceil(HW / tile_rows), C, 2), rows (N, C, 2) and
+// gsum (N, G, 2) float32 scratch. dtype and threads as fgn_group_norm's.
+int fgn_group_norm_backward(const void* x, const void* dy, const void* y,
+                            const void* gamma, const void* stats, void* dx,
+                            void* dres, void* dgamma, void* dbeta, void* rows,
+                            void* gsum, void* part, int N, int HW, int C,
+                            int G, int dtype, int threads, int grid,
+                            int tile_rows, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if ((dgamma == nullptr) != (dbeta == nullptr)) {
+    return (int)cudaErrorInvalidValue;
   }
-  if (dtype == 1) {
-    return (int)dispatch<__nv_bfloat16>(x, gamma, beta, res, out, part, N, HW,
-                                        C, G, eps, relu, threads, tile_rows,
-                                        apply_rows, st);
-  }
+  const BwdArgs a{x, dy, y, static_cast<const float*>(gamma),
+                  static_cast<const float*>(stats), dx, dres,
+                  static_cast<float*>(dgamma), static_cast<float*>(dbeta),
+                  static_cast<float*>(rows), static_cast<float*>(gsum),
+                  static_cast<float*>(part), N, HW, grid, tile_rows};
+  if (dtype == 0) return (int)backward<float>(a, C, G, threads, st);
+  if (dtype == 1) return (int)backward<__nv_bfloat16>(a, C, G, threads, st);
   return (int)cudaErrorInvalidValue;
 }
 

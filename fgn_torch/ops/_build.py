@@ -52,8 +52,11 @@ _SIGNATURES = {
     },
     "group_norm": {
         "fgn_group_norm": (
-            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
-             _P], _I),
+            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I,
+             _I, _P], _I),
+        "fgn_group_norm_backward": (
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+             _I, _I, _I, _I, _P], _I),
         "fgn_group_norm_error_string": ([_I], ctypes.c_char_p),
     },
     "vit_attention": {

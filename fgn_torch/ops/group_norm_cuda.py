@@ -1,4 +1,5 @@
-"""GroupNorm with its epilogue (K3): hand-written CUDA kernel + plain version.
+"""GroupNorm with its epilogue (K3) and its gradient (K3-bwd): hand-written
+CUDA kernels + plain versions.
 
 ``group_norm(x, num_groups, weight, bias, eps, dtype, residual, relu)``
 computes ``act(cast(GN_f32(x) * weight + bias) [+ residual])`` on an NCHW
@@ -9,8 +10,16 @@ residual add in ``dtype`` and the optional ReLU.
 Routes, chosen from what the call shows:
 
   * a call that autograd records (grad enabled and any of x, weight, bias,
-    residual requiring grad) takes the plain version, counted as
-    ``gn.autograd``: the kernel has no backward;
+    residual requiring grad), counted as ``gn.train``, runs through
+    ``_GroupNormTrain``: on a CUDA tensor the forward kernel, which also
+    writes each (instance, group)'s f32 mean and rstd, and in the backward
+    ``fgn_group_norm_backward`` (counted ``gn.bwd.onepass`` or
+    ``gn.bwd.split``, ``_plan_bwd`` decides), or it raises as the forward
+    does on what the kernels cannot take; on a CPU tensor the same Function
+    with plain bodies (``group_norm_train_plain``,
+    ``group_norm_bwd_plain``). Under ``torch.utils.checkpoint``'s
+    non-reentrant recomputation the forward runs twice, and its counters
+    count twice;
   * any other call on a CPU tensor takes the plain version, uncounted;
   * any other call on a CUDA tensor launches ``csrc/group_norm.cu`` or
     raises: x channels_last (NHWC in memory), bf16 or f32, in ``dtype``.
@@ -24,7 +33,11 @@ Routes, chosen from what the call shows:
 The plain version is the composition the model ran before the kernel:
 ``F.group_norm`` on the input cast to f32, a cast to ``dtype``, ``y +
 residual``, ``F.relu``. The kernel differs from it only in the order of its
-f32 sums (a few elements one bf16 ulp apart). It never synchronises.
+f32 sums (a few elements one bf16 ulp apart). The backward computes the
+composition's gradient (``dz`` = dy where the output is not <= 0 with the
+ReLU; the residual's gradient ``dz``; dx in f32 rounded once to x's dtype;
+weight's and bias's in f32) with its own order of sums, which repeats from
+run to run: no float is added atomically. Nothing synchronises.
 """
 
 from __future__ import annotations
@@ -53,6 +66,9 @@ _SMEM_FOUR_BLOCKS = 56_320
 _TILE_BYTES = 48 * 1024
 # The split route's apply blocks: this many an SM over the whole call.
 _APPLY_BLOCKS_PER_SM = 2
+# The backward's split route: about this many tiles (blocks) an SM over the
+# call.
+_BWD_TILES_PER_SM = 4
 
 
 class Plan(NamedTuple):
@@ -69,6 +85,18 @@ class Plan(NamedTuple):
     apply_rows: int = 0
 
 
+class BwdPlan(NamedTuple):
+    """How one backward call runs: the route, the threads a block, the
+    onepass kernel's shared memory, its blocks ("onepass") or the tiles an
+    instance ("split"), and a tile's rows."""
+
+    route: str  # "onepass" or "split"
+    threads: int
+    smem: int
+    grid: int
+    tile_rows: int = 0
+
+
 def group_norm_plain(x, num_groups: int, weight, bias, eps: float, dtype,
                      residual=None, relu: bool = False):
     """The plain version: F.group_norm in f32 (f64 for f64), cast to
@@ -81,6 +109,52 @@ def group_norm_plain(x, num_groups: int, weight, bias, eps: float, dtype,
     return F.relu(y) if relu else y
 
 
+def group_norm_train_plain(x, num_groups: int, weight, bias, eps: float,
+                           dtype, residual=None, relu: bool = False):
+    """``group_norm_plain``'s output and each (instance, group)'s mean and
+    rstd, stacked (N, G, 2) in f32 (f64 for f64)."""
+    dt = torch.promote_types(x.dtype, torch.float32)
+    var, mean = torch.var_mean(x.to(dt).reshape(x.shape[0], num_groups, -1),
+                               -1, unbiased=False)
+    return (group_norm_plain(x, num_groups, weight, bias, eps, dtype,
+                             residual, relu),
+            torch.stack((mean, (var + eps).rsqrt()), -1))
+
+
+def group_norm_bwd_plain(x, out, dy, stats, weight, num_groups: int,
+                         relu: bool, residual_dtype=None,
+                         needs=(True, True, True, True)):
+    """The gradient of ``group_norm_train_plain``'s call: x, its output
+    ``out`` (read only with ``relu``), the output's gradient ``dy``, its
+    ``stats``; ``needs`` says which of (dx, dweight, dbias, dresidual) to
+    form, ``residual_dtype`` the residual's dtype. → those four, None where
+    not wanted. The kernels' formula in plain torch, in f32 (f64 for f64):
+    ``dz`` = dy where out is not <= 0 (with the ReLU), x̂ = (x − mean)·rstd,
+    dx = rstd·(w·dz − mean(w·dz) − x̂·mean(w·dz·x̂)), the means over a
+    group; dweight = Σ dz·x̂, dbias = Σ dz; dresidual = dz."""
+    dt = torch.promote_types(x.dtype, torch.float32)
+    N, C = x.shape[:2]
+    G = num_groups
+    dz = torch.where(out <= 0, torch.zeros((), dtype=dy.dtype), dy) \
+        if relu else dy
+    z = dz.to(dt).reshape(N, G, C // G, -1)
+    mean, rstd = (s.to(dt)[:, :, None, None] for s in stats.unbind(-1))
+    xh = (x.to(dt).reshape(N, G, C // G, -1) - mean) * rstd
+    dx = dw = db = dres = None
+    if needs[0]:
+        wz = z * weight.to(dt).reshape(1, G, C // G, 1)
+        dx = rstd * (wz - wz.mean((2, 3), keepdim=True)
+                     - xh * (wz * xh).mean((2, 3), keepdim=True))
+        dx = dx.reshape(x.shape).to(x.dtype)
+    if needs[1]:
+        dw = (z * xh).sum((0, 3)).reshape(C).to(weight.dtype)
+    if needs[2]:
+        db = z.sum((0, 3)).reshape(C).to(weight.dtype)
+    if needs[3]:
+        dres = dz.to(residual_dtype)
+    return dx, dw, db, dres
+
+
 def _records_grad(x, weight, bias, residual) -> bool:
     return torch.is_grad_enabled() and (
         x.requires_grad or weight.requires_grad or bias.requires_grad
@@ -88,11 +162,11 @@ def _records_grad(x, weight, bias, residual) -> bool:
 
 
 def route(x, weight, bias, residual=None) -> str:
-    """The route of a call: "autograd" where autograd records it, else
+    """The route of a call: "train" where autograd records it, else
     "plain" for a CPU tensor, else "kernel" (whose own route, "onepass" or
     "split", ``_plan`` picks from the shape)."""
     if _records_grad(x, weight, bias, residual):
-        return "autograd"
+        return "train"
     return "plain" if x.device.type == "cpu" else "kernel"
 
 
@@ -150,9 +224,78 @@ def _plan(N: int, HW: int, C: int, G: int, esize: int, sms: int,
                 tile_rows, tiles, apply_rows)
 
 
+def _bwd_smem(HW: int, C: int, G: int, esize: int, threads: int) -> int:
+    """Shared memory of the backward's onepass kernel: x and dz of an
+    instance, a slot a (row of a pass, channel), a channel's two sums and a
+    group's two means."""
+    return 2 * HW * C * esize + threads * (16 // esize) * 4 + 8 * C + 8 * G
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan_bwd(N: int, HW: int, C: int, G: int, esize: int,
+              sms: int) -> BwdPlan:
+    """The backward's route of N instances of HW rows of C channels
+    (``esize`` bytes each) in G groups, on a card of ``sms`` SMs:
+    "onepass" where an instance's x and dz and the scratch fit two blocks
+    of 256 threads on an SM (a grid of two blocks an SM) or one of 512 (one
+    an SM); else "split", blocks of 256 threads (512 where a row has more
+    16-byte chunks), about _BWD_TILES_PER_SM tiles an SM over the call,
+    tiles of equal rows."""
+    row = C * esize
+    wide = row // 16 > 256  # more chunks a row than 256 threads
+    for threads, per_sm, room in ((256, 2, _SMEM_TWO_BLOCKS),
+                                  (512, 1, _SMEM_MAX)):
+        smem = _bwd_smem(HW, C, G, esize, threads)
+        if smem <= room and not (wide and threads == 256):
+            return BwdPlan("onepass", threads, smem, min(N, per_sm * sms))
+    threads = 512 if wide else 256
+    tiles = max(1, min(HW, -(-_BWD_TILES_PER_SM * sms // N)))
+    tile_rows = -(-HW // tiles)
+    return BwdPlan("split", threads, 0, -(-HW // tile_rows), tile_rows)
+
+
 @functools.lru_cache(maxsize=16)
 def _sm_count(device: int) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _sms(x) -> int:
+    dev = x.device.index
+    return _sm_count(torch.cuda.current_device() if dev is None else dev)
+
+
+class _GroupNormTrain(torch.autograd.Function):
+    """GroupNorm with its epilogue, differentiable: the kernels on a CUDA
+    tensor, the plain bodies on a CPU one. Saves x, the mean and rstd, the
+    weight and, with the ReLU, the output (its mask is ``out > 0``)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, residual, num_groups, eps, dtype, relu):
+        if x.device.type == "cpu":
+            out, stats = group_norm_train_plain(
+                x, num_groups, weight, bias, eps, dtype, residual, relu)
+        else:
+            stats = torch.empty((x.shape[0], num_groups, 2),
+                                dtype=torch.float32, device=x.device)
+            out = _launch(x, num_groups, weight, bias, eps, dtype, residual,
+                          relu, stats=stats)
+        ctx.save_for_backward(x, weight, stats, out if relu else None)
+        ctx.num_groups, ctx.relu = num_groups, relu
+        ctx.residual_dtype = None if residual is None else residual.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, stats, out = ctx.saved_tensors
+        needs = tuple(ctx.needs_input_grad[:4])
+        if x.device.type == "cpu":
+            grads = group_norm_bwd_plain(x, out, dy, stats, weight,
+                                         ctx.num_groups, ctx.relu,
+                                         ctx.residual_dtype, needs)
+        else:
+            grads = _launch_bwd(x, out, dy, stats, weight, ctx.num_groups,
+                                needs)
+        return (*grads, None, None, None, None)
 
 
 def group_norm(x, num_groups: int, weight, bias, eps: float, dtype,
@@ -161,11 +304,13 @@ def group_norm(x, num_groups: int, weight, bias, eps: float, dtype,
     weight, bias (C,); residual like x or None. See the module's docstring
     for the routes."""
     r = route(x, weight, bias, residual)
+    if r == "train":
+        count("gn.train")
+        return _GroupNormTrain.apply(x, weight, bias, residual, num_groups,
+                                     eps, dtype, bool(relu))
     if r == "kernel":
         return _launch(x, num_groups, weight, bias, eps, dtype, residual,
                        relu)
-    if r == "autograd":
-        count("gn.autograd")
     return group_norm_plain(x, num_groups, weight, bias, eps, dtype,
                             residual, relu)
 
@@ -201,18 +346,18 @@ def _check(x, G, weight, bias, dtype, residual):
         raise ValueError("group_norm: x must be 16-byte aligned")
 
 
-def _launch(x, G, weight, bias, eps, dtype, residual, relu, plan=None):
-    """The kernel on checked arguments, on ``_plan``'s route (or ``plan``)."""
+def _launch(x, G, weight, bias, eps, dtype, residual, relu, plan=None,
+            stats=None):
+    """The kernel on checked arguments, on ``_plan``'s route (or ``plan``);
+    with ``stats``, an (N, G, 2) f32 tensor, the training instantiation,
+    which also writes there each (instance, group)'s mean and rstd."""
     _check(x, G, weight, bias, dtype, residual)
     N, C, H, W = x.shape
     out = torch.empty_like(x)  # x's strides: channels_last
     if out.numel() == 0:
         return out
     if plan is None:
-        dev = x.device.index
-        if dev is None:
-            dev = torch.cuda.current_device()
-        plan = _plan(N, H * W, C, G, x.element_size(), _sm_count(dev))
+        plan = _plan(N, H * W, C, G, x.element_size(), _sms(x))
     part = None
     if plan.route == "split":
         if N > 65535:
@@ -224,10 +369,63 @@ def _launch(x, G, weight, bias, eps, dtype, residual, relu, plan=None):
     rc = lib.fgn_group_norm(
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
         None if residual is None else residual.data_ptr(), out.data_ptr(),
-        None if part is None else part.data_ptr(), N, H * W, C, G,
+        None if part is None else part.data_ptr(),
+        None if stats is None else stats.data_ptr(), N, H * W, C, G,
         float(eps), int(bool(relu)), _DTYPES[x.dtype], plan.threads,
         plan.tile_rows, plan.apply_rows,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, "fgn_group_norm_error_string", rc, "group_norm kernel")
     count("gn." + plan.route)
     return out
+
+
+def _launch_bwd(x, out, dy, stats, weight, G, needs):
+    """The backward kernels on the forward's checked tensors (``out`` None
+    without the ReLU) and ``dy`` (made channels_last and 16-byte aligned
+    where it is not), on ``_plan_bwd``'s route. ``needs``: (dx, dweight,
+    dbias, dresidual) wanted. → those four, None where not wanted."""
+    N, C, H, W = x.shape
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"group_norm backward: want dy like x "
+                         f"{tuple(x.shape)} {x.dtype}, got "
+                         f"{tuple(dy.shape)} {dy.dtype}")
+    dy = dy.contiguous(memory_format=torch.channels_last)
+    if dy.data_ptr() % 16:
+        dy = dy.clone()
+    want_dx, want_params, want_res = needs[0], needs[1] or needs[2], needs[3]
+    dx = torch.empty_like(x) if want_dx else None
+    dres = torch.empty_like(x) if want_res else None
+    dw = db = None
+    if want_params:
+        dw = torch.empty(C, dtype=torch.float32, device=x.device)
+        db = torch.empty_like(dw)
+    if x.numel() == 0:
+        return tuple(None if t is None else t.zero_()
+                     for t in (dx, dw, db, dres))
+    plan = _plan_bwd(N, H * W, C, G, x.element_size(), _sms(x))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    gsum = part = None
+    if plan.route == "onepass":
+        rows = torch.empty((plan.grid, C, 2), **f32)
+    else:
+        if N > 65535:
+            raise ValueError(f"group_norm backward: N={N} instances too "
+                             f"many for the split route")
+        rows = torch.empty((N, C, 2), **f32)
+        gsum = torch.empty((N, G, 2), **f32)
+        part = torch.empty((N, plan.grid, C, 2), **f32)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = _build.load("group_norm")
+    rc = lib.fgn_group_norm_backward(
+        x.data_ptr(), dy.data_ptr(), ptr(out), weight.data_ptr(),
+        stats.data_ptr(), ptr(dx), ptr(dres), ptr(dw), ptr(db),
+        rows.data_ptr(), ptr(gsum), ptr(part), N, H * W, C, G,
+        _DTYPES[x.dtype], plan.threads, plan.grid, plan.tile_rows,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, "fgn_group_norm_error_string", rc,
+                 "group_norm backward kernel")
+    count("gn.bwd." + plan.route)
+    return (dx, dw if needs[1] else None, db if needs[2] else None, dres)

@@ -32,8 +32,10 @@ when a summary is asked for; the last ``KEEP`` units are kept.
 ``count(name, n)`` is an always-on process counter: the kernels' wrappers
 count their launches by route (``k1.staged``, ``k1.direct``,
 ``k1_bwd.staged``, ``k1_bwd.atomic``, ``k2.staged``, ``k2.unstaged``,
-``gn.onepass``, ``gn.split``; ``gn.autograd`` counts the GroupNorm calls
-that took the library composition because autograd records them).
+``gn.onepass``, ``gn.split``, ``gn.bwd.onepass``, ``gn.bwd.split``;
+``gn.train`` counts the GroupNorm calls that autograd records, each of
+them a forward launch and, once the gradient flows, a backward launch;
+under ``torch.utils.checkpoint``'s recomputation a forward counts twice).
 """
 
 from __future__ import annotations

@@ -10,11 +10,16 @@ The CUDA kernel runs only on the card (``chip_smoke.py``, phase
     res5's and the relation head's shapes, with each epilogue;
   * ``ResNetC4`` and ``SharedRes5`` on channels_last inputs give the values
     and the memory formats of that composition, layer by layer;
-  * a call that autograd records is routed to the plain composition and
-    counted as ``gn.autograd``; a ``no_grad`` call is not (a CPU tensor takes
+  * a call that autograd records is routed to ``_GroupNormTrain`` and
+    counted as ``gn.train``; a ``no_grad`` call is not (a CPU tensor takes
     the plain version uncounted, any other the kernel);
-  * the kernel's routes and sizes (``_plan``) at the model's shapes, and the
-    channel layouts it refuses (``_layout``).
+  * that Function's plain forward and backward bodies on the CPU, which
+    hold the kernels' gradient formula, against autograd through the
+    composition in f64 (and bf16), with each epilogue, frozen weights or
+    input, under ``torch.utils.checkpoint``, at shapes of both backward
+    routes;
+  * the kernels' routes and sizes (``_plan``, ``_plan_bwd``) at the
+    model's shapes, and the channel layouts they refuse (``_layout``).
 """
 
 import pytest
@@ -26,8 +31,9 @@ from fgn_torch.models.resnet import (
     FrozenAffine, GroupNorm, ResNetC4, SharedRes5, _nchw, _nhwc,
 )
 from fgn_torch.ops.group_norm_cuda import (
-    _APPLY_BLOCKS_PER_SM, _SMEM_FOUR_BLOCKS, _SMEM_MAX, _SMEM_TWO_BLOCKS, _TILE_BYTES, _layout,
-    _plan, group_norm, route,
+    _APPLY_BLOCKS_PER_SM, _BWD_TILES_PER_SM, _SMEM_FOUR_BLOCKS, _SMEM_MAX,
+    _SMEM_TWO_BLOCKS, _TILE_BYTES, _bwd_smem, _layout, _plan, _plan_bwd,
+    group_norm, group_norm_plain, route,
 )
 from fgn_torch.utils.profiling import counts
 
@@ -195,10 +201,10 @@ def test_any_nhwc_input_runs_channels_last(model):
 
 # (which tensors require grad, whether grad is enabled) → route on the CPU
 ROUTES = [
-    ("params", True, "autograd"),
+    ("params", True, "train"),
     ("params", False, "plain"),
-    ("x", True, "autograd"),
-    ("residual", True, "autograd"),
+    ("x", True, "train"),
+    ("residual", True, "train"),
     ("none", True, "plain"),
     ("none", False, "plain"),
 ]
@@ -225,12 +231,13 @@ def test_route_follows_autograd(needs, grad, want, device):
         assert route(x, w, b, res) == want
         if device == "meta":
             return
-        before = counts().get("gn.autograd", 0)
+        before = counts().get("gn.train", 0)
         out = gn(x, res, relu=True)
-        moved = counts().get("gn.autograd", 0) - before
-    assert moved == (want == "autograd")
-    assert out.requires_grad == (want == "autograd")
-    assert not any(counts().get(k, 0) for k in ("gn.onepass", "gn.split"))
+        moved = counts().get("gn.train", 0) - before
+    assert moved == (want == "train")
+    assert out.requires_grad == (want == "train")
+    assert not any(counts().get(k, 0) for k in (
+        "gn.onepass", "gn.split", "gn.bwd.onepass", "gn.bwd.split"))
 
 
 # (name, N, H·W, C, bf16?) at the OMNIISEG model's b8 request: queries at
@@ -319,3 +326,148 @@ def test_group_norm_function_matches_module():
             group_norm(x, 32, gn.weight, gn.bias, 1e-5, torch.bfloat16,
                        None, True),
             gn(x, relu=True))
+
+
+# (name, N, C, H, W, residual, relu, (x, weight/bias, residual) require
+# grad, dtype, checkpoint, the backward route _plan_bwd gives the shape at
+# its N a b8 train step, in bf16): each epilogue; a group that fills 16-byte
+# chunks (Cg 16) and one that divides a chunk (Cg 1); both routes at shapes
+# of the train step (res5 and the relation head's 7x7 RoI maps, onepass;
+# a support's 8x8x1024 map and a query's stem and layer1 maps, split, at
+# fewer instances); frozen weights, a frozen input; a call recomputed by
+# torch.utils.checkpoint.
+T3 = (True, True, True)
+TRAIN_CASES = [
+    ("none", 2, 64, 6, 6, False, False, T3, "f64", False, None),
+    ("relu", 2, 64, 6, 6, False, True, T3, "f64", False, None),
+    ("residual", 2, 64, 6, 6, True, False, T3, "f64", False, None),
+    ("residual-relu", 2, 64, 6, 6, True, True, T3, "f64", False, None),
+    ("group-fills-chunk", 2, 512, 5, 5, True, True, T3, "f64", False, None),
+    ("group-divides-chunk", 3, 32, 9, 9, False, True, T3, "f64", False,
+     None),
+    ("res5-1024", 6, 1024, 7, 7, True, True, T3, "f64", False,
+     ("onepass", 1024)),
+    ("rel_gn", 6, 1024, 7, 7, False, True, T3, "f64", False,
+     ("onepass", 3072)),
+    ("layer3-s-out", 3, 1024, 8, 8, True, True, T3, "f64", False,
+     ("split", 72)),
+    ("stem-q", 1, 32, 240, 240, False, True, T3, "f64", False, ("split", 8)),
+    ("layer1-q", 1, 256, 120, 120, True, True, T3, "f64", False,
+     ("split", 8)),
+    ("frozen-params", 2, 64, 6, 6, True, True, (True, False, True), "f64",
+     False, None),
+    ("frozen-x", 2, 64, 6, 6, True, True, (False, True, True), "f64", False,
+     None),
+    ("checkpoint", 2, 64, 6, 6, True, True, T3, "f64", True, None),
+    ("bf16", 4, 256, 7, 7, True, True, T3, "bf16", False, None),
+]
+
+
+@pytest.mark.parametrize("case", TRAIN_CASES, ids=[c[0] for c in TRAIN_CASES])
+def test_train_function_matches_autograd(case):
+    """``_GroupNormTrain``'s plain forward equals the composition bit for
+    bit, and its plain backward (the kernels' formula) gives autograd's
+    gradients through the composition: in f64 to 1e-10 of each gradient's
+    scale; in bf16 dx within two bf16 ulp, the residual's exactly, weight's
+    and bias's within 1e-5 of their scale (f32 sums in other orders).
+    A frozen input is compared with the composition on its NCHW copy:
+    torch's CPU GroupNorm backward crashes on a channels_last input that
+    wants no gradient."""
+    (_, N, C, H, W, with_res, relu, needs, dtype, remat, bwd) = case
+    from torch.utils.checkpoint import checkpoint
+
+    dt = torch.float64 if dtype == "f64" else torch.bfloat16
+    if bwd is not None:
+        route_, n_model = bwd
+        assert _plan_bwd(n_model, H * W, C, 32, 2, 132).route == route_
+    gen = torch.Generator().manual_seed(C + H + N)
+    x = _channels_last(gen, N, C, H, W, dt, scale=3.0, shift=0.5)
+    res = _channels_last(gen, N, C, H, W, dt) if with_res else None
+    dy = _channels_last(gen, N, C, H, W, dt)
+    w = 1 + 0.3 * torch.randn(C, generator=gen)
+    b = 0.2 * torch.randn(C, generator=gen)
+
+    def leaves(x, res, w, b):
+        x = x.detach().requires_grad_(needs[0])
+        w = w.detach().requires_grad_(needs[1])
+        b = b.detach().requires_grad_(needs[1])
+        if res is not None:
+            res = res.detach().requires_grad_(needs[2])
+        return x, res, w, b
+
+    def run(fn, x, res, w, b):
+        args = (x, 32, w, b, 1e-5, dt, res, relu)
+        out = (checkpoint(fn, *args, use_reentrant=False) if remat
+               else fn(*args))
+        grads = torch.autograd.grad(
+            out, [t for t in (x, w, b, res) if t is not None
+                  and t.requires_grad], dy)
+        return out, grads
+
+    before = counts().get("gn.train", 0)
+    got_out, got = run(group_norm, *leaves(x, res, w, b))
+    assert counts().get("gn.train", 0) - before == (2 if remat else 1)
+    _, want = run(group_norm_plain,
+                  *leaves(x if needs[0] else x.contiguous(), res, w, b))
+    with torch.no_grad():
+        assert torch.equal(got_out, group_norm_plain(x, 32, w, b, 1e-5, dt,
+                                                     res, relu))
+    assert len(got) == len(want)
+    for g, r in zip(got, want):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        if dt == torch.float64:
+            scale = float(r.abs().max())
+            assert float((g - r).abs().max()) <= 1e-10 * scale
+        elif g.dtype == torch.float32:  # weight's, bias's
+            scale = float(r.abs().max())
+            assert float((g - r).abs().max()) <= 1e-5 * scale
+        elif with_res and g is got[-1]:  # the residual's
+            assert torch.equal(g, r)
+        else:  # x's, in bf16
+            gf, rf = g.float(), r.float()
+            tol = 2.0 ** -7 * (gf.abs() + rf.abs()) + 1e-5 * float(
+                rf.abs().max())
+            assert bool(((gf - rf).abs() <= tol).all())
+
+
+def test_train_route_raises_off_the_kernels_reach():
+    """A call autograd records on a device that is neither the CPU nor CUDA
+    (a meta tensor) goes to the kernel's checks and raises: nothing falls
+    back to the composition."""
+    gn = GroupNorm(32, 64, 1e-5, dtype=torch.float32).to("meta")
+    x = torch.empty((2, 64, 6, 6), device="meta").requires_grad_()
+    with pytest.raises(ValueError, match="unsupported device"):
+        gn(x, relu=True)
+
+
+# The backward route of each MODEL_SHAPES entry (bf16) at its N.
+BWD_ROUTES = {
+    "stem-q": "split", "stem3-q": "split", "layer1-q": "split",
+    "layer2-q": "split", "layer3-q": "split", "stem-s": "split",
+    "layer1-s": "split", "layer2-s": "onepass", "layer3-s": "onepass",
+    "layer3-s-out": "split", "res5-512": "onepass", "res5-1024": "onepass",
+    "rel_gn": "onepass", "res5-1024-b1": "onepass",
+}
+
+
+@pytest.mark.parametrize("name,N,HW,C", [(s[0], *s[1:4])
+                                         for s in MODEL_SHAPES],
+                         ids=[s[0] for s in MODEL_SHAPES])
+def test_plan_bwd_at_the_model_shapes(name, N, HW, C):
+    """onepass: x and dz of an instance and the scratch fit two blocks of
+    256 threads on an SM (a grid of two blocks an SM) or one of 512 (one an
+    SM), no more blocks than instances; split: tiles of equal rows that
+    cover each instance once, about _BWD_TILES_PER_SM an SM."""
+    plan = _plan_bwd(N, HW, C, 32, 2, 132)
+    assert plan.route == BWD_ROUTES[name]
+    assert C * 2 // 16 <= plan.threads
+    if plan.route == "onepass":
+        room, per_sm = {256: (_SMEM_TWO_BLOCKS, 2),
+                        512: (_SMEM_MAX, 1)}[plan.threads]
+        assert plan.smem == _bwd_smem(HW, C, 32, 2, plan.threads) <= room
+        assert plan.grid == min(N, per_sm * 132)
+        return
+    assert plan.threads == 256
+    assert plan.grid == -(-HW // plan.tile_rows)
+    assert (plan.grid - 1) * plan.tile_rows < HW <= plan.grid * plan.tile_rows
+    assert plan.grid <= max(1, -(-_BWD_TILES_PER_SM * 132 // N))
