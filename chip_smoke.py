@@ -28,6 +28,11 @@ blocks and windows, the supports' global blocks and windows) and at two
 more grids, timed, its largest call beside its FLOP bound, the plain
 version and the library's SDPA over the bias in memory, and counted a ViT
 cell request (one launch an ``attend``, no bias in memory, no SDPA call).
+InternImage's DCNv3 core (``DCNv3.dcn_core``, a composition of library
+ops) is held against the reference's explicit gather in f32 at the
+InternImage cell's shapes and timed beside its byte bound, a
+channels-last candidate (``F.embedding_bag`` over the corners' rows) and
+the published composition in bf16.
 The optimizer's multi-tensor update (K5) is held bit for bit against the
 optimizer's plain route over the OMNIISEG cell's 189 tensors (Adagrad and
 Adam, three steps, one gradient missing) in the training phase, and timed
@@ -1295,6 +1300,121 @@ def phase_vit_attention(dev, gpu):
         path="ViT cell, the queries' global block at b4 (4, 16, 4096, 64)",
         launches=launches.get("k4.launches", 0), route="cuda",
         bound_by="FLOPs")
+
+
+# InternImage-L's DCNv3 core at the InternImage cell's calls (b4 queries of
+# 800x1088, 36 supports of 128 px): (name, B, H, W, C)
+DCN_SHAPES = [("query-stage1", 4, 200, 272, 160), ("query-stage3", 4, 50, 68, 640),
+              ("support-stage1", 36, 32, 32, 160)]
+DCN_TOL = 3e-3  # relative L2 gap of the bf16 program to the f32 gather: its one rounding
+
+
+def dcn_published_bf16(value, offset, mask_logits, G, k, s):
+    """``dcnv3_core_pytorch``'s composition in bf16, as published for a
+    half-precision model: the map permuted to (B·G, 16, H, W) and
+    ``F.grid_sample``'s grid in the map's dtype."""
+    import torch
+    import torch.nn.functional as F
+
+    from fgn_torch.models import internimage
+
+    B, H, W, C = value.shape
+    P, gc = k * k, C // G
+    v = value.view(B, H * W, G, gc).permute(0, 2, 3, 1).reshape(B * G, gc, H, W)
+    loc = internimage.locations(internimage.base_grid(H, W, k, s, value.device),
+                                offset.view(B, H, W, G, P, 2), s)
+    norm = torch.tensor([2.0 / W, 2.0 / H], device=value.device)
+    grid = ((loc + 0.5) * norm - 1).to(value.dtype).permute(0, 3, 1, 2, 4, 5)
+    sampled = F.grid_sample(v, grid.reshape(B * G, H * W, P, 2), mode="bilinear",
+                            padding_mode="zeros", align_corners=False)
+    m = torch.softmax(mask_logits.view(B, H * W, G, P).float(), -1).to(value.dtype)
+    out = (sampled * m.permute(0, 2, 1, 3).reshape(B * G, 1, H * W, P)).sum(-1)
+    return out.view(B, G, gc, H, W).permute(0, 3, 4, 1, 2).reshape(B, H, W, C)
+
+
+def dcn_corner_rows(value, offset, mask_logits, G, k, s):
+    """The channels-last candidate, timed only: the map zero-padded (one
+    pixel before, two after) in f32 and viewed as rows of one group's 16
+    channels, no permute; each location clamped into the padded map; the
+    four corners' rows and weights m·(1 − f)/f; one ``F.embedding_bag``
+    summing the 36 weighted rows of every pixel and group."""
+    import torch
+    import torch.nn.functional as F
+
+    from fgn_torch.models import internimage
+
+    B, H, W, C = value.shape
+    P, gc, dev = k * k, C // G, value.device
+    m = torch.softmax(mask_logits.view(B, H, W, G, P), -1, dtype=torch.float32)
+    loc = internimage.locations(internimage.base_grid(H, W, k, s, dev),
+                                offset.view(B, H, W, G, P, 2), s)
+    loc = torch.fmin(torch.fmax(loc, torch.tensor([-1.0, -1.0], device=dev)),
+                     torch.tensor([float(W), float(H)], device=dev))
+    fl = loc.floor()
+    frac = loc - fl
+    Wp = W + 3
+    first = (torch.arange(B, device=dev)[:, None] * ((H + 3) * Wp * G)
+             + torch.arange(G, device=dev) + (Wp + 1) * G).view(B, 1, 1, G, 1, 1)
+    step = torch.tensor([0, G, Wp * G, Wp * G + G], device=dev)
+    rows = (first + step + (fl[..., 0] + fl[..., 1] * Wp)[..., None].long() * G)
+    w = torch.stack((1 - frac, frac), -1)  # (…, P, (x, y), (lower, upper))
+    wt = ((m[..., None] * w[..., 1, :])[..., :, None] * w[..., 0, None, :])
+    vp = value.new_zeros((B, H + 3, W + 3, C), dtype=torch.float32)
+    vp[:, 1:H + 1, 1:W + 1] = value
+    out = F.embedding_bag(rows.view(-1, P * 4).int(), vp.view(-1, gc),
+                          per_sample_weights=wt.reshape(-1, P * 4), mode="sum")
+    return out.view(B, H, W, C).to(value.dtype)
+
+
+def phase_dcn(dev, gpu):
+    """The DCNv3 core at ``DCN_SHAPES``: bf16 v, offsets and logits (the
+    offsets about a pixel, as the cell's weights give them), the program's
+    route (``DCNv3.dcn_core``, ``F.grid_sample`` in f32) against the
+    reference's explicit gather on their f32 copies (relative L2 gap
+    within ``DCN_TOL``), timed beside the byte bound
+    (``benchmark/harness/dcn.py``), the channels-last candidate
+    (``dcn_corner_rows``) and the published composition in bf16 (its gap
+    too)."""
+    import torch
+
+    from benchmark.harness import dcn as dcn_count
+    from benchmark.reference.internimage import dcn_core as ref_core
+    from fgn_torch.models import internimage
+
+    gen = torch.Generator(device=dev).manual_seed(25)
+    for name, B, H, W, C in DCN_SHAPES:
+        G, k, s = C // 16, 3, 2.0
+        core = internimage.DCNv3(C, G, k, s, 1e-6, torch.bfloat16).to(dev)
+
+        def draw(*shape, std=1.0):
+            return (torch.randn(*shape, generator=gen, device=dev) * std).bfloat16()
+
+        v, off, ml = draw(B, H, W, C), draw(B, H, W, G * 18, std=0.6), draw(B, H, W, G * 9)
+        with torch.no_grad():
+            got = core.dcn_core(v, off, ml)
+            with strict_f32():
+                want = ref_core(v.float(), off.float(), ml.float(), G, k, s)
+            others = {"rows": dcn_corner_rows, "bf16": dcn_published_bf16}
+            gaps = {n: ((f(v, off, ml, G, k, s).float() - want).norm() / want.norm()).item()
+                    for n, f in others.items()}
+        torch.cuda.synchronize()
+        err = ((got.float() - want).norm() / want.norm()).item()
+        check(err <= DCN_TOL, f"DCN {name}: gap {err:.3g} over {DCN_TOL}")
+        with torch.no_grad():
+            ms = cuda_ms(lambda: core.dcn_core(v, off, ml), 10)
+            other_ms = {n: cuda_ms(lambda: f(v, off, ml, G, k, s), 5)
+                        for n, f in others.items()}
+        d = lambda t: {"shape": tuple(t.shape), "itemsize": t.element_size()}  # noqa: E731
+        nbytes = dcn_count.dcn_bytes(d(v), d(off), d(ml))
+        bound = 1e3 * dcn_count.roofline_s({"args": [d(v), d(off), d(ml)]},
+                                           PEAK_BF16_FLOPS_S, HBM_BYTES_S)
+        print(f"DCN {name} B{B} {H}x{W}x{C} G{G}: gap to the f32 gather {err:.4g} "
+              f"(corner rows {gaps['rows']:.4g}, published bf16 {gaps['bf16']:.4g}); "
+              f"program {ms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB), "
+              f"{100 * bound / ms:.1f} % of it; corner rows {other_ms['rows']:.4f} ms, "
+              f"published bf16 {other_ms['bf16']:.4f} ms; on {gpu}", flush=True)
+        del core, v, off, ml, got, want
+        torch.cuda.empty_cache()
 
 
 def flagship_cfg(**kw):
@@ -4199,7 +4319,7 @@ PRINTED_ITERS = 4
 # runner and dp phases take the engine's split and model config, so each
 # brings the engine phase with it).
 PHASES = ("roi_align", "roi_align_backward", "nms", "group_norm",
-          "vit_attention", "main_path",
+          "vit_attention", "dcn", "main_path",
           "plain_twin",
           "coco2voc_serve", "train", "train_twin", "engine", "eval",
           "runner", "cocovoc", "dp")
@@ -4280,6 +4400,9 @@ def main(argv=None):
             ("swin_proposals", 4, 50, 68, 768, 300),
             ("swin_detections", 4, 50, 68, 768, 100),
             ("swin_support", 36, 8, 8, 768, 1),
+            # the InternImage-L cell's 640-channel C4 maps
+            ("internimage_proposals", 4, 50, 68, 640, 300),
+            ("internimage_support", 36, 8, 8, 640, 1),
             ("large", 1, 128, 128, 128, 64),  # past shared memory: direct
         ])
         # the staged kernel's generic instance (out_size, sampling ratio not
@@ -4313,6 +4436,9 @@ def main(argv=None):
     if "vit_attention" in want:
         recs["vit_attention"] = phase_vit_attention(dev, gpu)
         phase_done("vit_attention")
+    if "dcn" in want:
+        phase_dcn(dev, gpu)
+        phase_done("dcn")
     if "main_path" in want:
         model, batch, calls, path_launches["forward_flagship_b8"] = (
             phase_main_path(dev, gpu))

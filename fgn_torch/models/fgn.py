@@ -42,12 +42,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from fgn_torch.config import FGNConfig
+from fgn_torch.config.internimage import InternImageConfig
 from fgn_torch.config.swin import SwinConfig
 from fgn_torch.config.vit import ViTDetConfig
 from fgn_torch.data.batching import EpisodeBatch, mask_to_float, to_device
 from fgn_torch.models.losses import (
     accuracy_balanced, sigmoid_bce, smooth_l1, softmax_ce,
 )
+from fgn_torch.models.internimage import InternImage
 from fgn_torch.models.resnet import (
     Conv2d, GroupNorm, Linear, ResNetC4, SharedRes5, _nchw, _nhwc,
 )
@@ -106,12 +108,15 @@ class FGN(nn.Module):
     ``ViTDetConfig`` for ViTDet's plain ViT (``models/vit.py``), whose
     last map takes the C4 map's place (1024 channels at stride 16), or a
     ``SwinConfig`` for the Swin Transformer (``models/swin.py``), whose
-    stride-16 stage does (768 channels for Swin-L). ``rpn_conv`` and
+    stride-16 stage does (768 channels for Swin-L), or an
+    ``InternImageConfig`` for InternImage (``models/internimage.py``), whose
+    stride-16 stage does (640 channels for InternImage-L). ``rpn_conv`` and
     ``SharedRes5`` take the C4 map's width; from res5's output on, the
     heads are 1024 wide whatever the backbone."""
 
     def __init__(self, cfg: FGNConfig,
-                 backbone: Union[ViTDetConfig, SwinConfig, None] = None):
+                 backbone: Union[ViTDetConfig, SwinConfig, InternImageConfig,
+                                 None] = None):
         super().__init__()
         self.cfg = c = cfg
         dt = self.dt = _DTYPES[c.compute_dtype]
@@ -130,11 +135,13 @@ class FGN(nn.Module):
                 norm=c.backbone_norm, frozen=c.backbone_frozen,
                 deep_stem=c.deep_stem, avg_down=c.avg_down, dtype=dt,
             )
-        elif isinstance(backbone, SwinConfig):
+        elif isinstance(backbone, (SwinConfig, InternImageConfig)):
             if backbone.stride != c.stride:
-                raise ValueError(f"a Swin backbone's out stage has stride "
-                                 f"{backbone.stride}, not the model's {c.stride}")
-            self.backbone = Swin(backbone, frozen=c.backbone_frozen, dtype=dt)
+                raise ValueError(f"the backbone's out stage has stride "
+                                 f"{backbone.stride}, not the model's {c.stride}: "
+                                 f"{backbone}")
+            net = Swin if isinstance(backbone, SwinConfig) else InternImage
+            self.backbone = net(backbone, frozen=c.backbone_frozen, dtype=dt)
             c4 = backbone.out_channels
         elif backbone.embed_dim != 1024 or backbone.patch_size != c.stride:
             raise ValueError("a ViT backbone gives FGN's heads 1024 channels at "
